@@ -50,3 +50,9 @@ def run_multidevice(code: str, n_devices: int = 8, timeout: int = 600):
             f"subprocess failed (rc={proc.returncode})\nstdout:\n{proc.stdout}\nstderr:\n{proc.stderr}"
         )
     return proc.stdout
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (and nvcc); skipped where there is none"
+    )
