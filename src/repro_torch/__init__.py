@@ -1,15 +1,19 @@
 """repro_torch — the PyTorch + CUDA port of ``repro`` (Pipelined CG).
 
-Runs the single-device Jacobi-preconditioned pipelined CG (Ghysels &
-Vanroose Alg. 2) of a DIA stencil operator on an NVIDIA H100, with the
-JAX package's three Pallas TPU kernels on that path (``spmv_dia``,
-``fused_vma``, ``fused_iter``) rewritten as hand-written CUDA kernels.
+Runs single-device pipelined CG (Ghysels & Vanroose Alg. 2) and the PCG
+and Chronopoulos–Gear baselines on an NVIDIA H100, for DIA (banded),
+Block-ELLPACK and CSR operators, with the JAX package's Pallas TPU
+kernels on those paths (``spmv_dia``, ``fused_vma``, ``fused_iter``,
+``spmv_bell``, and ``fused_dot`` beside them) rewritten as hand-written
+CUDA kernels.
 The JAX package ``repro`` stays the reference; this package imports
 nothing of it, nor JAX.
 
 Entry points: ``repro_torch.plan(A, ...)`` -> reusable ``SolverPlan``,
 and the one-shot ``repro_torch.solve(A, b, ...)`` over a keyed plan
-cache. Operators: ``repro_torch.sparse.poisson7/27/125(n, device=...)``.
+cache. Operators: ``repro_torch.sparse.poisson7/27/125(n, device=...)``,
+``table1_matrix(name, device=...)`` and the converters
+``csr_from_dia``/``bell_from_csr``/``csr_device_from_host``.
 Everything runs on CUDA unless the caller asks for the CPU.
 """
 
@@ -19,6 +23,7 @@ _API = (
     "solve",
     "SolverPlan",
     "get_plan",
+    "register_solver",
     "solver_names",
     "plan_cache_stats",
     "clear_plan_cache",

@@ -1,25 +1,38 @@
 """Top-level solver API of the port — one-shot ``solve`` over the plan cache.
 
 ``repro_torch.plan(A, ...)`` is the primary entry point (see
-``repro_torch.plan``). ``repro_torch.solve(A, b, ...)`` fetches the
-matching plan from a keyed LRU cache and runs ``plan.solve(b)``, so
-repeated solves against one operator reuse its pinned core.
+``repro_torch.plan``). ``repro_torch.solve(A, b, method=..., ...)``
+fetches the matching plan from a keyed LRU cache and runs
+``plan.solve(b)``, so repeated solves against one operator reuse its
+pinned core.
 
-``engine``: "torch" (plain PyTorch, the JAX package's "jnp"), "cuda"
-(fused_vma kernel + spmv_dia kernel, the JAX "pallas"), "fused_iter" (the
-whole iteration as one CUDA kernel) or "auto" (fused_iter on a CUDA
-operator, torch on a CPU one). ``spmv_engine``: "torch"/"cuda"/"bf16"/"auto".
+``method``: "pipecg" (default), "pcg" or "chronopoulos" (the registry of
+``repro_torch.plan.register_solver``). ``engine``: "torch" (plain
+PyTorch, the JAX package's "jnp"), "cuda" (fused_vma kernel + the
+format's SPMV, the JAX "pallas"), "fused_iter" (the whole iteration as
+one CUDA kernel, DIA only) or "auto" (the kernels on a CUDA operator,
+torch on a CPU one); the baselines take "auto"/"torch".
+``spmv_engine``: "torch"/"cuda"/"segsum"/"bf16"/"auto".
 """
 from __future__ import annotations
 
 from .core.types import SolveResult
-from .plan import SolverPlan, clear_plan_cache, get_plan, plan, plan_cache_stats, solver_names
+from .plan import (
+    SolverPlan,
+    clear_plan_cache,
+    get_plan,
+    plan,
+    plan_cache_stats,
+    register_solver,
+    solver_names,
+)
 
 __all__ = [
     "solve",
     "plan",
     "SolverPlan",
     "get_plan",
+    "register_solver",
     "solver_names",
     "plan_cache_stats",
     "clear_plan_cache",

@@ -15,18 +15,22 @@ The iteration core is the strategy (JAX package names in brackets):
     core          needs                    SPMV per iteration    CUDA kernels/iter
     -----------   ----------------------   -------------------   -----------------
     "torch"       [jnp]        any         via spmv_fn           0 (plain PyTorch)
-    "cuda"        [pallas]     any         via spmv_fn           fused_vma + spmv_dia
+    "cuda"        [pallas]     any         via spmv_fn           fused_vma + the SPMV
+                                                                 (spmv_dia / spmv_bell;
+                                                                 CSR: segsum, torch ops)
     "fused_iter"  DIAMatrix, Jacobi or     inside the kernel     fused_iter
                   identity PC
-    "auto"        fused_iter for a DIA operator on a CUDA device, "torch"
-                  for an operator the caller put on the CPU.
+    "auto"        fused_iter for a DIA operator with a Jacobi/identity PC
+                  on a CUDA device, "cuda" for any other operator or PC
+                  there, "torch" for an operator the caller put on the CPU.
 
 The loop is a Python loop that never waits for the device inside an
 iteration: gamma, delta, alpha, the norm, the iteration counter and an
 ``active`` flag are 0-d device tensors, and the kernels read alpha, beta
 and ``active`` through pointers. The host polls ``active`` once every
 ``POLL_EVERY`` steps; the steps between convergence and the poll are
-no-ops on the device (the kernels return early, the plain core keeps x),
+no-ops on the device (the kernels, ``spmv_bell`` among them, return
+early; the plain core keeps x),
 so iteration counts, x, the residual norm and the NaN-tailed history are
 exactly those of a loop that stops at convergence.
 """
@@ -37,10 +41,13 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from .preconditioners import identity
 from .reduce import Reducer, make_reducer
 
 __all__ = [
     "POLL_EVERY",
+    "Convergence",
+    "solve_inputs",
     "dot_f32",
     "pipecg_vma_core",
     "torch_core",
@@ -95,11 +102,14 @@ def torch_core(z, q, s, p, x, r, u, w, n, m, inv_diag, alpha, beta, active=None)
 def vma_core_cuda(z, q, s, p, x, r, u, w, n, m, inv_diag, alpha, beta, active=None):
     """The core through the fused_vma kernel (vectors updated in place).
 
-    ``inv_diag`` is required: the identity PC is a unit diagonal.
+    ``inv_diag=None`` (a preconditioner the loop applies itself) runs the
+    kernel with a unit diagonal, as the JAX package's Pallas core does;
+    the loop then replaces m by ``pc_fn(w)``.
     """
     from ..kernels.fused_vma import fused_vma_dots
 
-    *vecs, dots = fused_vma_dots(z, q, s, p, x, r, u, w, n, m, inv_diag, alpha, beta, active)
+    inv = inv_diag if inv_diag is not None else torch.ones_like(w)
+    *vecs, dots = fused_vma_dots(z, q, s, p, x, r, u, w, n, m, inv, alpha, beta, active)
     return (*vecs, (dots[0], dots[1], dots[2]))
 
 
@@ -178,7 +188,8 @@ def resolve_core_name(engine: str, A=None) -> str:
         return engine
     from ..sparse.formats import DIAMatrix
 
-    if A is None or A.device.type != "cuda":
+    device = getattr(A, "device", None)
+    if device is None or device.type != "cuda":
         return "torch"
     return "fused_iter" if isinstance(A, DIAMatrix) else "cuda"
 
@@ -192,6 +203,59 @@ def get_core(engine: str, A=None) -> Callable:
     if getattr(core, "needs_operator", False):
         return core(A)
     return core
+
+
+def solve_inputs(A, b, M, x0):
+    """``(M, x0)`` of a solve: identity and zeros by default; b and x0
+    must lie on the operator's device."""
+    if b.device != A.device:
+        raise ValueError(f"b is on {b.device}, the operator on {A.device}")
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    elif x0.device != A.device:
+        raise ValueError(f"x0 is on {x0.device}, the operator on {A.device}")
+    return identity() if M is None else M, x0
+
+
+class Convergence:
+    """Device-side convergence bookkeeping of every solver loop.
+
+    Holds the threshold ``max(atol, rtol * norm0)``, the NaN-tailed
+    history, the last norm while active, the iteration counter and the
+    ``active`` flag, all on the device. :meth:`poll` is the one host sync,
+    once per ``POLL_EVERY`` steps; :meth:`record` books step k without a
+    sync, so a step after convergence changes nothing that is returned.
+    """
+
+    def __init__(self, norm0: torch.Tensor, atol: float, rtol: float, maxiter: int):
+        dev = norm0.device
+        self.thresh = torch.maximum(
+            torch.tensor(atol, dtype=norm0.dtype, device=dev),
+            torch.tensor(rtol, dtype=norm0.dtype, device=dev) * norm0,
+        )
+        self.history = torch.full((maxiter + 1,), math.nan, dtype=torch.float32, device=dev)
+        self.history[0] = norm0.to(torch.float32)
+        self._nan = torch.tensor(math.nan, dtype=torch.float32, device=dev)
+        self.norm = norm0
+        self.iterations = torch.zeros((), dtype=torch.int32, device=dev)
+        self.active = norm0 > self.thresh
+        self.steps = 0
+
+    def poll(self, k: int) -> bool:
+        """True when the loop may stop before step k (syncs every POLL_EVERY steps)."""
+        return k % POLL_EVERY == 0 and not bool(self.active)
+
+    def record(self, k: int, norm_new: torch.Tensor) -> None:
+        """Book step k's norm if the solve was still active, then update the flag."""
+        self.history[k + 1] = torch.where(self.active, norm_new.to(torch.float32), self._nan)
+        self.norm = torch.where(self.active, norm_new, self.norm)
+        self.iterations = self.iterations + self.active
+        self.active = self.active & (norm_new > self.thresh)
+        self.steps = k + 1
+
+    @property
+    def converged(self) -> torch.Tensor:
+        return self.norm <= self.thresh
 
 
 def run_pipecg(
@@ -212,7 +276,10 @@ def run_pipecg(
     """One PIPECG solve, generic over SPMV / PC / core / reduction strategy.
 
     When ``inv_diag`` is given the core fuses the Jacobi PC; otherwise
-    ``pc_fn`` is applied to w each iteration. Cores flagged
+    ``pc_fn`` is applied to w each iteration. Inside the loop ``spmv_fn``
+    is called as ``spmv_fn(v, active=flag)`` with the device ``active``
+    flag, which an SPMV kernel may read to skip its work once the solve
+    has converged; init calls it as ``spmv_fn(v)``. Cores flagged
     ``fuses_spmv`` compute n = A m inside the kernel: the loop then
     carries no n and calls ``spmv_fn`` only for init and residual
     replacement. ``replace_spmv_fn`` overrides the SPMV of residual
@@ -226,33 +293,23 @@ def run_pipecg(
     if replace_spmv_fn is None:
         replace_spmv_fn = spmv_fn
     fused_spmv = bool(getattr(core, "fuses_spmv", False))
-    dtype, dev = b.dtype, b.device
+    dtype = b.dtype
 
     # init (Alg. 2 lines 1-3)
     r = b - spmv_fn(x0)
     u = pc_fn(r)
     w = spmv_fn(u)
     gamma, delta, nn = reducer(dot_f32(r, u), dot_f32(w, u), dot_f32(u, u))
-    norm = torch.sqrt(nn)
+    conv = Convergence(torch.sqrt(nn), atol, rtol, maxiter)
     m = pc_fn(w)
     n = None if fused_spmv else spmv_fn(m)
-    thresh = torch.maximum(
-        torch.tensor(atol, dtype=norm.dtype, device=dev),
-        torch.tensor(rtol, dtype=norm.dtype, device=dev) * norm,
-    )
-    hist = torch.full((maxiter + 1,), math.nan, dtype=torch.float32, device=dev)
-    hist[0] = norm.to(torch.float32)
-    nan = torch.tensor(math.nan, dtype=torch.float32, device=dev)
     z, q, s, p = (torch.zeros_like(b) for _ in range(4))
     x = x0.clone()  # kernel cores update x in place; the caller's x0 stays
     m_spare = torch.empty_like(m) if fused_spmv else None
-    i = torch.zeros((), dtype=torch.int32, device=dev)
-    active = norm > thresh
     gamma_prev = alpha_prev = None
-    steps = 0
 
     for k in range(maxiter):
-        if k % POLL_EVERY == 0 and not bool(active):  # the one host sync
+        if conv.poll(k):
             break
         # scalars (lines 5-9) — consume the previous iteration's dots. While
         # active, the device counter i equals k, so the branch is k's.
@@ -265,18 +322,18 @@ def run_pipecg(
         a, bt = alpha.to(dtype), beta.to(dtype)
         if fused_spmv:
             z, q, s, p, x, r, u, w, m_new, (g_p, d_p, n_p) = core(
-                z, q, s, p, x, r, u, w, m, m_spare, inv_diag, a, bt, active
+                z, q, s, p, x, r, u, w, m, m_spare, inv_diag, a, bt, conv.active
             )
             m, m_spare = m_new, m
         else:
             z, q, s, p, x, r, u, w, m, (g_p, d_p, n_p) = core(
-                z, q, s, p, x, r, u, w, n, m, inv_diag, a, bt, active
+                z, q, s, p, x, r, u, w, n, m, inv_diag, a, bt, conv.active
             )
             if inv_diag is None:
                 m = pc_fn(w)  # general (non-fused) preconditioner
         gamma_new, delta_new, uu = reducer(g_p, d_p, n_p)
         if not fused_spmv:
-            n = spmv_fn(m)  # line 22
+            n = spmv_fn(m, active=conv.active)  # line 22
         norm_new = torch.sqrt(uu)
 
         if replace_every > 0 and k > 0 and (k + 1) % replace_every == 0:
@@ -295,10 +352,6 @@ def run_pipecg(
             gamma_new, delta_new, nn = reducer(dot_f32(r, u), dot_f32(w, u), dot_f32(u, u))
             norm_new = torch.sqrt(nn)
 
-        hist[k + 1] = torch.where(active, norm_new.to(torch.float32), nan)
-        norm = torch.where(active, norm_new, norm)
-        i = i + active
-        active = active & (norm_new > thresh)
+        conv.record(k, norm_new)
         gamma, gamma_prev, delta, alpha_prev = gamma_new, gamma, delta_new, alpha
-        steps = k + 1
-    return i, x, norm, norm <= thresh, hist, steps
+    return conv.iterations, x, conv.norm, conv.converged, conv.history, conv.steps

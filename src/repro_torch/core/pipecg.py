@@ -4,12 +4,18 @@ Thin single-device front end over the shared solver loop in
 ``core.iteration``: the iteration core, the SPMV engine and the (here:
 local) reduction are injected, so this file holds no iteration math.
 
-What it does own is the **padded execution path**. For the kernel cores
-("cuda", "fused_iter") the solve runs on views zero-padded once to a
-multiple of the kernels' block — operator diagonals, b, x0, inv_diag —
-and slices x back to n at the end. The DIA zero convention keeps the
-padded tail exactly 0 through every recurrence. ``SolverPlan`` builds
-the ``fused_iter`` core once at plan time, pinning the padded diagonals.
+What it does own is the choice of execution path for the kernel cores
+("cuda", "fused_iter"):
+
+* a DIA operator with an elementwise (Jacobi/identity) preconditioner
+  runs the **padded path**: operator diagonals, b, x0 and inv_diag are
+  zero-padded once to a multiple of the kernels' block, and x is sliced
+  back to n at the end. The DIA zero convention keeps the padded tail
+  exactly 0 through every recurrence. ``SolverPlan`` builds the
+  ``fused_iter`` core once at plan time, pinning the padded diagonals;
+* any other operator (Bell, CSR, dense, matrix-free) or preconditioner
+  runs unpadded: ``fused_vma`` takes any length, and the SPMV is the
+  operator's own engine (``spmv_bell`` on the card for a Bell operator).
 """
 from __future__ import annotations
 
@@ -18,8 +24,14 @@ import torch
 from ..kernels.common import BLOCK, ceil_to, pad1d
 from ..sparse.formats import DIAMatrix
 from ..sparse.spmv import resolve_engine, spmv, spmv_dia, spmv_dia_bf16
-from .iteration import get_core, make_fused_iter_core, resolve_core_name, run_pipecg
-from .preconditioners import JacobiPC, apply_pc, identity
+from .iteration import (
+    get_core,
+    make_fused_iter_core,
+    resolve_core_name,
+    run_pipecg,
+    solve_inputs,
+)
+from .preconditioners import IdentityPC, JacobiPC, apply_pc
 from .types import SolveResult
 
 __all__ = ["pipecg", "pin_pipecg_core"]
@@ -29,6 +41,10 @@ __all__ = ["pipecg", "pin_pipecg_core"]
 _BF16_REPLACE_EVERY = 50
 
 _KERNEL_CORES = ("cuda", "fused_iter")
+
+
+def _elementwise_pc(M) -> bool:
+    return isinstance(M, (JacobiPC, IdentityPC))
 
 
 def _padded_spmv_fns(Ap: DIAMatrix, spmv_engine: str):
@@ -42,10 +58,10 @@ def _padded_spmv_fns(Ap: DIAMatrix, spmv_engine: str):
 
     eng = resolve_engine(Ap, spmv_engine)
 
-    def _cuda(v):
+    def _cuda(v, active=None):
         return spmv_dia_cuda(Ap, v)
 
-    def _plain(v):
+    def _plain(v, active=None):
         return spmv_dia(Ap, v)
 
     full = _cuda if Ap.device.type == "cuda" else _plain
@@ -53,30 +69,50 @@ def _padded_spmv_fns(Ap: DIAMatrix, spmv_engine: str):
         return _cuda, _cuda
     if eng == "bf16":
         A16 = Ap.with_dtype(torch.bfloat16)  # cast once per solve, not per apply
-        return (lambda v: spmv_dia_bf16(A16, v)), full
+        return (lambda v, active=None: spmv_dia_bf16(A16, v)), full
     return _plain, _plain
+
+
+def _with_unit_diag(core, ones: torch.Tensor):
+    """The "cuda" core under a preconditioner the loop applies itself:
+    fused_vma gets a unit diagonal built once per solve, and the loop
+    then replaces m by ``pc_fn(w)``."""
+
+    def unit_core(z, q, s, p, x, r, u, w, n, m, inv_diag, alpha, beta, active=None):
+        return core(z, q, s, p, x, r, u, w, n, m, ones, alpha, beta, active)
+
+    return unit_core
 
 
 def _pipecg_impl(A, b, M, x0, atol, rtol, maxiter, core_name, spmv_engine, replace_every,
                  core_obj) -> SolveResult:
-    # Jacobi fuses into the iteration core; identity is the unit diagonal
+    # Jacobi fuses into the iteration core; any other PC is applied per
+    # iteration by the loop (inv_diag=None -> m = pc_fn(w))
     inv_diag = M.inv_diag if isinstance(M, JacobiPC) else None
+    replace_spmv_fn = (lambda v: spmv(A, v, engine="auto")) if spmv_engine == "bf16" else None
+    kernel_core = core_name in _KERNEL_CORES
 
-    if core_name not in _KERNEL_CORES:
+    if not kernel_core or not (isinstance(A, DIAMatrix) and _elementwise_pc(M)):
+        core = get_core(core_name, A)
+        if kernel_core and isinstance(M, IdentityPC):
+            # the kernel fuses identity as a unit diagonal, so every vector
+            # the loop builds is a buffer of its own
+            M = JacobiPC(inv_diag=torch.ones_like(b))
+            inv_diag = M.inv_diag
+        elif kernel_core and inv_diag is None:
+            core = _with_unit_diag(core, torch.ones_like(b))
         i, x, norm, converged, hist, steps = run_pipecg(
             b,
             x0,
-            spmv_fn=lambda v: spmv(A, v, engine=spmv_engine),
+            spmv_fn=lambda v, active=None: spmv(A, v, engine=spmv_engine, active=active),
             pc_fn=lambda r: apply_pc(M, r),
-            core=get_core(core_name, A),
+            core=core,
             inv_diag=inv_diag,
             atol=atol,
             rtol=rtol,
             maxiter=maxiter,
             replace_every=replace_every,
-            replace_spmv_fn=(
-                (lambda v: spmv(A, v, engine="auto")) if spmv_engine == "bf16" else None
-            ),
+            replace_spmv_fn=replace_spmv_fn,
         )
         return SolveResult(x=x, iterations=i, residual_norm=norm, converged=converged,
                            history=hist, steps=steps)
@@ -117,27 +153,45 @@ def _pipecg_impl(A, b, M, x0, atol, rtol, maxiter, core_name, spmv_engine, repla
                        history=hist, steps=steps)
 
 
-def _resolve_config(A, engine: str, spmv_engine, replace_every, core):
-    """Shared engine/core/spmv/replace resolution for pipecg and plans."""
-    if not isinstance(A, DIAMatrix):
-        raise TypeError(f"the port's pipecg takes a DIAMatrix operator, got {type(A).__name__}")
+def _resolve_config(A, M, engine: str, spmv_engine, replace_every, core):
+    """Shared engine/core/spmv/replace resolution for pipecg and plans.
+
+    "auto" degrades from fused_iter to the "cuda" core when the operator
+    is not a DIA matrix or the preconditioner is not elementwise; an
+    explicit "fused_iter" raises there, as the JAX package does.
+    """
     core_name = "fused_iter" if core is not None else resolve_core_name(engine, A)
+    if core_name == "fused_iter":
+        if not isinstance(A, DIAMatrix):
+            if engine != "auto":
+                raise TypeError(
+                    f"engine 'fused_iter' needs a DIAMatrix operator, got {type(A).__name__}"
+                )
+            core_name = "cuda"
+        elif M is not None and not _elementwise_pc(M):
+            if engine != "auto":
+                raise ValueError(
+                    "engine 'fused_iter' fuses an elementwise preconditioner; "
+                    f"use M='jacobi'/'identity', got {type(M).__name__}"
+                )
+            core_name = "cuda"
     if spmv_engine is None:
         # fused_iter uses SPMV only at init/replacement -> device default;
         # engine="cuda"/"auto" runs the whole iteration on kernels
         spmv_engine = "auto" if core_name == "fused_iter" or engine in ("cuda", "auto") else "torch"
+    resolve_engine(A, spmv_engine)  # raises here for an engine the format lacks
     if replace_every is None:
         replace_every = _BF16_REPLACE_EVERY if spmv_engine == "bf16" else 0
     return core_name, spmv_engine, int(replace_every)
 
 
-def pin_pipecg_core(A, engine: str, spmv_engine=None, replace_every=None):
+def pin_pipecg_core(A, M, engine: str, spmv_engine=None, replace_every=None):
     """Plan-time setup: build (once) the operator-pinned fused core.
 
     Returns the ``core`` to thread into :func:`pipecg`, or None when the
     resolved configuration does not use one.
     """
-    core_name, _, _ = _resolve_config(A, engine, spmv_engine, replace_every, None)
+    core_name, _, _ = _resolve_config(A, M, engine, spmv_engine, replace_every, None)
     if core_name != "fused_iter":
         return None
     return make_fused_iter_core(A)
@@ -162,9 +216,11 @@ def pipecg(
     engine="cuda"       — the fused_vma kernel for the 8 VMAs + Jacobi PC +
                           dots; the SPMV is a second kernel.
     engine="fused_iter" — the whole iteration (banded SPMV + VMAs + PC +
-                          dots) as one CUDA kernel.
-    engine="auto"       — fused_iter for an operator on a CUDA device,
-                          "torch" for one on the CPU.
+                          dots) as one CUDA kernel; needs a DIAMatrix
+                          and a Jacobi/identity PC.
+    engine="auto"       — fused_iter where it applies on a CUDA device,
+                          else "cuda" there; "torch" for an operator on
+                          the CPU.
     spmv_engine         — "torch"/"cuda"/"bf16"/"auto"; defaults to
                           "auto" for fused_iter (init + residual
                           replacement only) and to following ``engine``
@@ -177,15 +233,8 @@ def pipecg(
 
     ``b`` (and ``x0``) must be on the operator's device.
     """
-    if b.device != A.device:
-        raise ValueError(f"b is on {b.device}, the operator on {A.device}")
-    if M is None:
-        M = identity()
-    if x0 is None:
-        x0 = torch.zeros_like(b)
-    elif x0.device != A.device:
-        raise ValueError(f"x0 is on {x0.device}, the operator on {A.device}")
-    core_name, spmv_engine, replace_every = _resolve_config(A, engine, spmv_engine,
+    M, x0 = solve_inputs(A, b, M, x0)
+    core_name, spmv_engine, replace_every = _resolve_config(A, M, engine, spmv_engine,
                                                             replace_every, core)
     return _pipecg_impl(A, b, M, x0, float(atol), float(rtol), int(maxiter), core_name,
                         spmv_engine, replace_every, core)

@@ -5,20 +5,29 @@ fused_iter — the whole PIPECG iteration: banded DIA SPMV + 8 VMAs +
 fused_vma  — the iteration core: 8 VMAs + Jacobi PC + dot partials in
              one pass (paper §V-B kernel fusion, extended).
 spmv_dia   — banded/stencil SPMV, f32 or bf16 storage, f32 accumulate.
+spmv_bell  — Block-ELLPACK SPMV (general sparsity), f32 or bf16 storage,
+             f32 accumulate, any row count.
+fused_dot  — the three PIPECG dots (r,u), (w,u), (u,u) in one pass.
 
 Each kernel ships kernel.py (ctypes binding of ``csrc/*.cu``), ops.py
 (the public wrapper: checks, allocation, launch counter; the plain
 version for CPU tensors) and ref.py (the plain PyTorch version).
 """
+from .fused_dot import fused_dots, fused_dots_ref
 from .fused_iter import fused_iter_ref, fused_iter_step
 from .fused_vma import fused_vma_dots, fused_vma_dots_ref
+from .spmv_bell import spmv_bell_cuda, spmv_bell_ref
 from .spmv_dia import spmv_dia_cuda, spmv_dia_ref
 
 __all__ = [
+    "fused_dots",
+    "fused_dots_ref",
     "fused_iter_ref",
     "fused_iter_step",
     "fused_vma_dots",
     "fused_vma_dots_ref",
+    "spmv_bell_cuda",
+    "spmv_bell_ref",
     "spmv_dia_cuda",
     "spmv_dia_ref",
 ]

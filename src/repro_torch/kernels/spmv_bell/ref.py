@@ -1,0 +1,14 @@
+"""Plain PyTorch version of the Block-ELLPACK SPMV:
+y[i] = sum_r vals[i, r] * x[cols[i, r]].
+
+Accumulates in at least float32 (bf16 storage is upcast per product)
+and returns x's dtype, as the JAX package's ``spmv_bell_ref`` does.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def spmv_bell_ref(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return (vals.to(acc) * x[cols].to(acc)).sum(dim=1).to(x.dtype)

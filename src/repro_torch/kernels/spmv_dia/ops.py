@@ -1,12 +1,16 @@
 """Public wrapper for the banded SPMV kernel."""
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import torch
 
-from ...sparse.formats import DIAMatrix
 from ..common import MAX_DIAGS, stream_ptr
 from . import kernel
 from .ref import spmv_dia_ref
+
+if TYPE_CHECKING:  # the sparse package imports the kernels package
+    from ...sparse.formats import DIAMatrix
 
 __all__ = ["spmv_dia_cuda"]
 

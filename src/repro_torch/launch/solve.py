@@ -2,8 +2,10 @@
 
 Thin CLI over the plan/execute API: builds one ``repro_torch.plan``
 (printed via ``plan.describe()``), then solves ``A x = A x*`` with
-``x* = ones / sqrt(N)``. Single device, method pipecg. Runs on CUDA
-unless ``--device cpu`` is given.
+``x* = ones / sqrt(N)``. Single device; ``--method`` pcg, chronopoulos
+or pipecg. Matrices: ``poisson7/27/125:n``, ``synthetic:N,nnz_per_row``
+and the Table-I names (``Queen_4147:scale``), all in DIA form. Runs on
+CUDA unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -11,28 +13,34 @@ import argparse
 
 import torch
 
-from ..plan import plan
-from ..sparse import poisson7, poisson27, poisson125, spmv
+from ..plan import plan, solver_names
+from ..sparse import poisson7, poisson27, poisson125, spmv, synthetic_spd_dia, table1_matrix
 
 GENS = {"poisson7": poisson7, "poisson27": poisson27, "poisson125": poisson125}
 
 
 def build_matrix(spec: str, device=None):
     name, _, arg = spec.partition(":")
-    if name not in GENS:
-        raise ValueError(f"unknown matrix {name!r}; have {sorted(GENS)}")
-    return GENS[name](int(arg or 8), device=device)
+    if name in GENS:
+        return GENS[name](int(arg or 8), device=device)
+    if name == "synthetic":
+        n, _, nnz = (arg or "1000,9").partition(",")
+        return synthetic_spd_dia(int(n), float(nnz or 9), device=device)
+    return table1_matrix(name, scale=float(arg or 1.0), device=device)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--matrix", default="poisson27:12", help="poisson7/27/125:N")
+    ap.add_argument("--matrix", default="poisson27:12",
+                    help="poisson7/27/125:N, synthetic:N,nnz_per_row or a Table-I name[:scale]")
+    ap.add_argument("--method", default="pipecg", choices=solver_names(),
+                    help="solver method (pcg/chronopoulos take engine auto/torch)")
     ap.add_argument("--engine", default="auto", choices=["auto", "torch", "cuda", "fused_iter"],
-                    help="iteration core; fused_iter = whole-iteration kernel")
+                    help="iteration core; fused_iter = whole-iteration kernel (pipecg, DIA)")
     ap.add_argument("--spmv-engine", default=None, choices=["auto", "torch", "cuda", "bf16"],
-                    help="SPMV backend; bf16 = half-traffic mixed precision")
+                    help="SPMV backend (pipecg); bf16 = half-traffic mixed precision")
     ap.add_argument("--replace-every", type=int, default=None,
-                    help="residual-replacement period (default: 0, or 50 under bf16)")
+                    help="residual-replacement period (pipecg; default: 0, or 50 under bf16)")
     ap.add_argument("--atol", type=float, default=1e-5)
     ap.add_argument("--rtol", type=float, default=0.0)
     ap.add_argument("--maxiter", type=int, default=10000)
@@ -45,9 +53,11 @@ def main(argv=None):
     print(f"matrix {args.matrix}: N={A.n} nnz/N={A.nnz() / A.n:.1f} bw={A.bandwidth} "
           f"device={A.device}")
 
-    p = plan(A, method="pipecg", engine=args.engine, M="jacobi", atol=args.atol,
-             rtol=args.rtol, maxiter=args.maxiter, replace_every=args.replace_every,
-             spmv_engine=args.spmv_engine)
+    kw = {}
+    if args.method == "pipecg":
+        kw = {"replace_every": args.replace_every, "spmv_engine": args.spmv_engine}
+    p = plan(A, method=args.method, engine=args.engine, M="jacobi", atol=args.atol,
+             rtol=args.rtol, maxiter=args.maxiter, **kw)
     desc = p.describe()
     print("plan:", ", ".join(f"{k}={desc[k]}" for k in sorted(desc)))
 
@@ -55,7 +65,7 @@ def main(argv=None):
     err = float(torch.linalg.norm(res.x - xstar))
     true_res = float(torch.linalg.norm(b - spmv(A, res.x)))
     print(
-        f"method=pipecg iters={int(res.iterations)} converged={bool(res.converged)} "
+        f"method={args.method} iters={int(res.iterations)} converged={bool(res.converged)} "
         f"|u|={float(res.residual_norm):.2e} |x-x*|={err:.2e} true_res={true_res:.2e}"
     )
 

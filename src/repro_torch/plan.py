@@ -6,54 +6,106 @@ right-hand side:
 
     p = repro_torch.plan(A, method="pipecg", M="jacobi")   # pay once
     res = p.solve(b)
-    p.describe()          # method / engine / core / spmv_engine / ...
+    p.describe()          # method / engine / core / spmv / ...
+
+Methods: "pipecg" (Algorithm 2), and the baselines "pcg" (Algorithm 1)
+and "chronopoulos" (Chronopoulos–Gear), through the registry
+``register_solver``. ``A`` may be a ``DIAMatrix``, ``BellMatrix`` or
+``CSRMatrix``, a dense tensor, or a matrix-free ``FunctionOperator``.
 
 Engine names (the JAX package's in brackets): "torch" [jnp], "cuda"
 [pallas], "fused_iter" [fused_iter], "auto" [auto]. A plan runs on its
 operator's device; "auto" takes the kernels on a CUDA operator and the
-plain path only for an operator the caller put on the CPU.
+plain path only for an operator the caller put on the CPU. The baselines
+take "auto"/"torch" only (their SPMV goes through ``spmv(A, ·)``, so on
+the card it is the format's kernel); the CUDA engines apply to pipecg.
 
-Ported so far: single-device ``method="pipecg"`` on a ``DIAMatrix``.
-Not yet: ``solve_batched``, ``config``, ``operator_fingerprint``,
-``trace_count``, telemetry, pcg/chronopoulos and the distributed methods.
+Not ported yet: ``solve_batched``, ``config``, ``operator_fingerprint``,
+``trace_count``, telemetry and the distributed methods.
 """
 from __future__ import annotations
 
+import inspect
 import sys as _sys
 from collections import OrderedDict
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
-from .core.pipecg import _resolve_config, pin_pipecg_core, pipecg
-from .core.preconditioners import IdentityPC, JacobiPC, identity, jacobi
+from .core import chronopoulos_cg, identity, jacobi, pcg, pipecg
+from .core.pipecg import _resolve_config, pin_pipecg_core
 from .core.types import SolveResult
+from .sparse.spmv import resolve_engine
 
 __all__ = [
     "plan",
     "SolverPlan",
+    "register_solver",
     "solver_names",
     "get_plan",
     "plan_cache_stats",
     "clear_plan_cache",
 ]
 
-_METHODS = ("pipecg",)
-_PIPECG_KWARGS = ("replace_every", "spmv_engine")
-
-
-def solver_names() -> Tuple[str, ...]:
-    return _METHODS
-
 
 def _resolve_pc(M, A):
     if M is None or M == "identity" or M == "none":
         return identity()
     if M == "jacobi":
-        return jacobi(A)
-    if isinstance(M, (JacobiPC, IdentityPC)):
-        return M
-    raise ValueError(f"unsupported preconditioner {M!r} (use 'jacobi'/'identity')")
+        return jacobi(A)  # needs A.diagonal(); matrix-free operators must pass diag=
+    if isinstance(M, str):
+        raise ValueError(f"unknown preconditioner name {M!r} (use 'jacobi'/'identity')")
+    return M
+
+
+def _require_torch_engine(method: str, engine: str) -> None:
+    # an honest failure instead of running plain PyTorch under a kernel label
+    if engine not in ("auto", "torch"):
+        raise ValueError(
+            f"method {method!r} has no {engine!r} backend (the CUDA engines apply "
+            "to pipecg); use engine='torch'/'auto'"
+        )
+
+
+def _solve_pcg(A, b, *, M, x0, atol, rtol, maxiter, engine):
+    _require_torch_engine("pcg", engine)
+    return pcg(A, b, M=M, x0=x0, atol=atol, rtol=rtol, maxiter=maxiter)
+
+
+def _solve_chronopoulos(A, b, *, M, x0, atol, rtol, maxiter, engine):
+    _require_torch_engine("chronopoulos", engine)
+    return chronopoulos_cg(A, b, M=M, x0=x0, atol=atol, rtol=rtol, maxiter=maxiter)
+
+
+def _solve_pipecg(A, b, *, M, x0, atol, rtol, maxiter, engine,
+                  replace_every=None, spmv_engine=None, core=None):
+    return pipecg(A, b, M=M, x0=x0, atol=atol, rtol=rtol, maxiter=maxiter, engine=engine,
+                  spmv_engine=spmv_engine, replace_every=replace_every, core=core)
+
+
+SolverFn = Callable[..., SolveResult]
+
+_SOLVERS: Dict[str, SolverFn] = {
+    "pcg": _solve_pcg,
+    "chronopoulos": _solve_chronopoulos,
+    "pipecg": _solve_pipecg,
+}
+
+
+def register_solver(name: str, fn: SolverFn, *, overwrite: bool = False) -> None:
+    """Register a solve method: ``fn(A, b, *, M, x0, atol, rtol, maxiter,
+    engine, ...) -> SolveResult``. Raises ValueError if ``name`` is
+    already registered, unless ``overwrite=True``."""
+    if name in _SOLVERS and not overwrite:
+        raise ValueError(
+            f"solver {name!r} already registered; pass overwrite=True to replace it"
+        )
+    _SOLVERS[name] = fn
+
+
+def solver_names() -> Tuple[str, ...]:
+    """All method names, each exactly once, sorted."""
+    return tuple(sorted(_SOLVERS))
 
 
 class SolverPlan:
@@ -61,14 +113,17 @@ class SolverPlan:
 
     def __init__(self, A, *, method="pipecg", engine="auto", M="jacobi",
                  atol=1e-5, rtol=0.0, maxiter=10000, **kwargs):
-        if method not in _METHODS:
-            raise ValueError(f"method {method!r} is not ported yet; have {solver_names()}")
-        unknown = set(kwargs) - set(_PIPECG_KWARGS)
-        if unknown:
-            raise TypeError(
-                f"method {method!r} does not accept {sorted(unknown)}; "
-                f"it takes {sorted(_PIPECG_KWARGS)}"
-            )
+        if method not in _SOLVERS:
+            raise ValueError(f"method {method!r} is not ported; have {solver_names()}")
+        fn = _SOLVERS[method]
+        params = inspect.signature(fn).parameters
+        if not any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
+            unknown = set(kwargs) - set(params)
+            if unknown:
+                raise TypeError(
+                    f"method {method!r} does not accept {sorted(unknown)}; "
+                    f"it takes {sorted(k for k in params if k not in ('A', 'b'))}"
+                )
         self.A = A
         self.method = method
         self.engine = engine
@@ -79,31 +134,35 @@ class SolverPlan:
         self.distributed = False
         self.kwargs = dict(kwargs)
         self.M = _resolve_pc(M, A)
-        # resolve once: raises here for a bad engine or operator, not per solve
-        self._core_name, self._spmv_engine, self._replace_every = _resolve_config(
-            A, engine, kwargs.get("spmv_engine"), kwargs.get("replace_every"), None
-        )
-        # plan-time pinning: the operator-bound fused_iter core (padded
-        # diagonals and all) is built once here and reused by every solve
-        self._core = pin_pipecg_core(A, engine, kwargs.get("spmv_engine"),
-                                     kwargs.get("replace_every"))
+        self._fn = fn
+        self._call_kwargs = dict(kwargs)
+        self._pipecg = None
+        spmv_engine = "auto"
+        if method == "pipecg" and kwargs.get("core") is None:
+            # resolve once: raises here for a bad engine or operator, not per
+            # solve; then pin the operator-bound fused_iter core (padded
+            # diagonals and all), built once and reused by every solve
+            self._pipecg = _resolve_config(A, self.M, engine, kwargs.get("spmv_engine"),
+                                           kwargs.get("replace_every"), None)
+            spmv_engine = self._pipecg[1]
+            self._call_kwargs["core"] = pin_pipecg_core(
+                A, self.M, engine, kwargs.get("spmv_engine"), kwargs.get("replace_every"))
+        self._spmv = resolve_engine(A, spmv_engine)
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None,
               atol: float | None = None, rtol: float | None = None) -> SolveResult:
         """Solve ``A x = b`` on the operator's device."""
-        return pipecg(
+        return self._fn(
             self.A, b, M=self.M, x0=x0,
             atol=self.atol if atol is None else atol,
             rtol=self.rtol if rtol is None else rtol,
-            maxiter=self.maxiter, engine=self.engine,
-            spmv_engine=self.kwargs.get("spmv_engine"),
-            replace_every=self.kwargs.get("replace_every"),
-            core=self._core,
+            maxiter=self.maxiter, engine=self.engine, **self._call_kwargs,
         )
 
     def describe(self) -> dict:
-        """What this plan pinned at setup (the JAX package's keys, plus
-        ``device``)."""
+        """What this plan pinned at setup: the JAX package's keys, plus
+        ``device`` and ``spmv``, the SPMV engine its solves run (for the
+        fused_iter core, the one of init and residual replacement)."""
         d = {
             "method": self.method,
             "engine": self.engine,
@@ -118,8 +177,9 @@ class SolverPlan:
             "device": str(self.A.device),
         }
         d.update({k: v for k, v in self.kwargs.items() if v is not None})
-        d.update(core=self._core_name, spmv_engine=self._spmv_engine,
-                 replace_every=self._replace_every)
+        if self._pipecg is not None:
+            d.update(zip(("core", "spmv_engine", "replace_every"), self._pipecg))
+        d["spmv"] = self._spmv
         return d
 
     def __repr__(self) -> str:
@@ -132,7 +192,8 @@ def plan(A, method: str = "pipecg", engine: str = "auto", M="jacobi",
          **kwargs) -> SolverPlan:
     """Build a reusable :class:`SolverPlan` for ``A`` (see module docstring).
 
-    ``replace_every``/``spmv_engine`` are pipecg's keyword arguments.
+    ``replace_every``/``spmv_engine`` are pipecg's keyword arguments; a
+    method given an argument it does not take raises TypeError.
     ``atol``/``rtol`` are the plan's defaults; ``plan.solve(b, atol=...)``
     overrides them per call.
     """

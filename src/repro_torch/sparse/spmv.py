@@ -1,18 +1,32 @@
-"""SPMV engine dispatch — one entry point, per-engine backends for DIA.
+"""SPMV engine dispatch — one entry point, per-format/per-engine backends.
 
 ``spmv(A, x, engine=...)`` routes on (matrix type, engine) through a
-registry. Engines for ``DIAMatrix`` (the JAX package's names in
-brackets):
+registry. The selection matrix (the JAX package's names in brackets):
 
-    "torch"  [jnp]     spmv_dia: plain shift-sum, the reference
-    "cuda"   [pallas]  kernels.spmv_dia: the hand-written CUDA kernel
-    "bf16"   [bf16]    spmv_dia_bf16: bf16 storage, f32 accumulation
-    "auto"             "cuda" for an operator on a CUDA device, else
-                       "torch" (only because the caller put it on the CPU)
+    engine          DIAMatrix            BellMatrix           CSRMatrix
+    -------------   ------------------   ------------------   -------------------
+    "torch" [jnp]   spmv_dia (shifts)    spmv_bell (gather)   spmv_csr (scatter)
+    "cuda" [pallas] kernels.spmv_dia     kernels.spmv_bell    — (runs "segsum")
+    "segsum"        —                    —                    spmv_csr_segsum
+    "bf16"          spmv_dia_bf16        —                    —
 
-The kernel wrapper itself runs its plain version for CPU tensors, so
-"cuda" on a CPU operator computes the same thing as "torch". An engine
-name that is not registered raises ValueError.
+    dense tensor         -> A @ x ("torch")
+    object with .matvec  -> protocol fallback ("torch"; matrix-free FunctionOperator)
+
+``engine="auto"``: "cuda" for an operator on a CUDA device when the
+format has a CUDA kernel; else "segsum" where registered (CSR: the
+sorted segmented sum); else "torch" (the plain version, which "auto"
+picks on the card only for a format with no kernel). "cuda" asked of a
+format with no CUDA kernel runs what "auto" picks for it (CSR:
+"segsum"), and :func:`resolve_engine` names that engine. Any other name
+that is not registered raises ValueError.
+
+The kernel wrappers run their plain version for CPU tensors, so "cuda"
+on a CPU operator computes the same thing as "torch".
+
+``spmv(A, x, active=flag)`` hands a solver loop's 0-d bool device flag
+to the engine that reads it (the Bell CUDA kernel), which then skips its
+work once the solve has converged; every other engine ignores the flag.
 """
 from __future__ import annotations
 
@@ -20,13 +34,17 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from ..kernels.spmv_bell.ref import spmv_bell_ref
 from ..kernels.spmv_dia.ref import shifted, spmv_dia_ref
-from .formats import DIAMatrix
+from .formats import BellMatrix, CSRMatrix, DIAMatrix
 
 __all__ = [
     "spmv",
     "spmv_dia",
     "spmv_dia_bf16",
+    "spmv_bell",
+    "spmv_csr",
+    "spmv_csr_segsum",
     "shifted",
     "register_spmv",
     "resolve_engine",
@@ -61,14 +79,50 @@ def spmv_dia_bf16(A: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     return spmv_dia_ref(A16.data, A.offsets, x16, out_dtype=acc).to(x.dtype)
 
 
+def spmv_bell(A: BellMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y[i] = sum_r vals[i, r] * x[cols[i, r]] (padding slots add 0)."""
+    return spmv_bell_ref(A.cols, A.vals, x)
+
+
+def spmv_csr(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Reference CSR SPMV: gather columns, scatter-add into rows."""
+    return torch.zeros(A.n, dtype=x.dtype, device=x.device).index_add_(
+        0, A.rows, A.vals * x[A.cols])
+
+
+def spmv_csr_segsum(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    """CSR SPMV as a sorted segment sum over the per-entry products.
+
+    ``rows`` is sorted by construction, so each row is one contiguous
+    segment; an empty row sums to 0.
+    """
+    return torch.segment_reduce(A.vals * x[A.cols], "sum", lengths=A.row_lengths)
+
+
+def _spmv_dense(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return A @ x
+
+
+def _spmv_matvec(A, x: torch.Tensor) -> torch.Tensor:
+    return A.matvec(x)
+
+
 def _spmv_dia_cuda(A: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     from ..kernels.spmv_dia import spmv_dia_cuda
 
     return spmv_dia_cuda(A, x)
 
 
+def _spmv_bell_cuda(A: BellMatrix, x: torch.Tensor, active=None) -> torch.Tensor:
+    from ..kernels.spmv_bell import spmv_bell_cuda
+
+    return spmv_bell_cuda(A, x, active)
+
+
 # (matrix type) -> (engine name) -> fn(A, x) -> y
 _REGISTRY: Dict[type, Dict[str, Callable]] = {}
+# the backends that also take a solver loop's flag: fn(A, x, active)
+_TAKES_ACTIVE = (_spmv_bell_cuda,)
 
 
 def register_spmv(mat_type: type, engine: str, fn: Callable, *, overwrite: bool = False) -> None:
@@ -89,15 +143,24 @@ def register_spmv(mat_type: type, engine: str, fn: Callable, *, overwrite: bool 
 register_spmv(DIAMatrix, "torch", spmv_dia)
 register_spmv(DIAMatrix, "cuda", _spmv_dia_cuda)
 register_spmv(DIAMatrix, "bf16", spmv_dia_bf16)
+register_spmv(BellMatrix, "torch", spmv_bell)
+register_spmv(BellMatrix, "cuda", _spmv_bell_cuda)
+register_spmv(CSRMatrix, "torch", spmv_csr)
+register_spmv(CSRMatrix, "segsum", spmv_csr_segsum)
 
 
 def _engines_for(A) -> Dict[str, Callable]:
+    # merge along the MRO: a subclass inherits its base format's engines
     table: Dict[str, Callable] = {}
     for klass in reversed(type(A).__mro__):
         table.update(_REGISTRY.get(klass, {}))
-    if not table:
-        raise TypeError(f"unsupported matrix type {type(A).__name__}")
-    return table
+    if table:
+        return table
+    if isinstance(A, torch.Tensor):
+        return {"torch": _spmv_dense}
+    if hasattr(A, "matvec"):  # LinearOperator protocol (matrix-free etc.)
+        return {"torch": _spmv_matvec}
+    raise TypeError(f"unsupported matrix type {type(A).__name__}")
 
 
 def spmv_engines(A) -> Tuple[str, ...]:
@@ -108,18 +171,31 @@ def spmv_engines(A) -> Tuple[str, ...]:
 def resolve_engine(A, engine: str = "auto") -> str:
     """The engine name ``spmv(A, x, engine=...)`` will run.
 
-    "auto" is "cuda" for an operator on a CUDA device when registered,
-    else "torch". A concrete name resolves to itself when registered and
-    raises ValueError otherwise.
+    "auto": "cuda" for an operator on a CUDA device when registered, else
+    "segsum" when registered, else "torch". A concrete name resolves to
+    itself when registered; "cuda" for a format without a CUDA kernel
+    resolves as "auto" does; any other name raises ValueError.
     """
     table = _engines_for(A)
     if engine == "auto":
-        return "cuda" if A.device.type == "cuda" and "cuda" in table else "torch"
-    if engine not in table:
-        raise ValueError(f"no SPMV engine {engine!r} for {type(A).__name__}; have {sorted(table)}")
-    return engine
+        device = getattr(A, "device", None)
+        if "cuda" in table and device is not None and device.type == "cuda":
+            return "cuda"
+        return "segsum" if "segsum" in table else "torch"
+    if engine in table:
+        return engine
+    if engine == "cuda":
+        return resolve_engine(A, "auto")
+    raise ValueError(f"no SPMV engine {engine!r} for {type(A).__name__}; have {sorted(table)}")
 
 
-def spmv(A, x: torch.Tensor, engine: str = "auto") -> torch.Tensor:
-    """y = A @ x through the engine registry (see :func:`resolve_engine`)."""
-    return _engines_for(A)[resolve_engine(A, engine)](A, x)
+def spmv(A, x: torch.Tensor, engine: str = "auto", active=None) -> torch.Tensor:
+    """y = A @ x through the engine registry (see :func:`resolve_engine`).
+
+    ``active``: a solver loop's 0-d bool device flag, passed to the Bell
+    CUDA kernel and ignored by every other engine.
+    """
+    fn = _engines_for(A)[resolve_engine(A, engine)]
+    if active is not None and fn in _TAKES_ACTIVE:
+        return fn(A, x, active)
+    return fn(A, x)

@@ -4,7 +4,8 @@ Every test here is marked ``cuda`` and skips where there is no GPU; on
 the card run ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
 The file imports neither JAX nor ``repro``: the card's machine has no JAX.
 Tolerances: f32 vectors rtol/atol 1e-5; dots rtol 1e-4 with atol
-1e-6·Σ|aᵢbᵢ| (f32 sums in another order); bf16 SPMV rtol 2e-2.
+1e-6·Σ|aᵢbᵢ| (f32 sums in another order); bf16 SPMV rtol 2e-2; bf16
+dots rtol 1e-3 (f32 sums of the same bf16 products).
 """
 import numpy as np
 import pytest
@@ -12,14 +13,26 @@ import torch
 
 import repro_torch
 from repro_torch.kernels import (
+    fused_dots,
+    fused_dots_ref,
     fused_iter_ref,
     fused_iter_step,
     fused_vma_dots,
     fused_vma_dots_ref,
+    spmv_bell_cuda,
+    spmv_bell_ref,
     spmv_dia_cuda,
     spmv_dia_ref,
 )
-from repro_torch.sparse import poisson27, poisson125
+from repro_torch.sparse import (
+    bell_from_csr,
+    csr_device_from_host,
+    csr_from_dia,
+    poisson27,
+    poisson125,
+    synthetic_spd_dia,
+    table1_matrix,
+)
 
 VEC = dict(rtol=1e-5, atol=1e-5)
 
@@ -113,3 +126,76 @@ def test_solve_engines_agree_and_launch_their_kernels(cuda):
     assert runs["auto"] == ("fused_iter", it, steps, 2, 0, steps, True)
     assert runs["cuda"] == ("cuda", it, steps, 3 + steps, steps, 0, True)
     assert runs["torch"] == ("torch", it, steps, 0, 0, 0, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmv_bell_matches_plain(cuda, dtype):
+    ops = [table1_matrix("bcsstk15", device=cuda)]  # N = 3,948, R = 29: a warp per row
+    ops += [synthetic_spd_dia(n, k, seed=1, device=cuda) for n, k in ((1000, 9), (777, 5), (500, 3))]
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    for D in ops:  # R = 29, 9, 5, 3: lane groups of 32, 16, 8 and 4
+        B = bell_from_csr(csr_from_dia(D), device=cuda).with_dtype(dtype)
+        x = _randn(B.n, 1, cuda).to(dtype)
+        before = spmv_bell_cuda.launches
+        got = spmv_bell_cuda(B, x)
+        assert got.dtype == dtype and spmv_bell_cuda.launches == before + 1
+        torch.testing.assert_close(got.float(), spmv_bell_ref(B.cols, B.vals, x).float(), **tol)
+        assert torch.equal(got, spmv_bell_cuda(B, x))  # fixed-order lane sums
+        on, off = (torch.tensor(f, device=cuda) for f in (True, False))
+        assert torch.equal(spmv_bell_cuda(B, x, on), got)
+        assert torch.equal(spmv_bell_cuda(B, x, off), torch.zeros_like(got))  # converged
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        spmv_bell_cuda(B.with_dtype(torch.float64), x.double())
+
+
+def test_spmv_bell_takes_more_than_2m_rows(cuda):
+    n = 2 * 1024 * 1024 + 12_345  # above the TPU kernel's VMEM limit
+    B = bell_from_csr(csr_from_dia(synthetic_spd_dia(n, 5, seed=2, device=cuda)), device=cuda)
+    x = _randn(n, 3, cuda)
+    before = spmv_bell_cuda.launches
+    got = spmv_bell_cuda(B, x)
+    torch.cuda.synchronize()
+    assert spmv_bell_cuda.launches == before + 1
+    torch.testing.assert_close(got, spmv_bell_ref(B.cols, B.vals, x), **VEC)
+    bad = B.cols.clone()
+    bad[7, 0] = n
+    with pytest.raises(ValueError, match="outside"):
+        spmv_bell_cuda(type(B)(bad, B.vals, n), x)
+
+
+@pytest.mark.parametrize("n", [3_948, 4_147_110])
+def test_fused_dots_matches_plain(cuda, n):
+    r, u, w = (_randn(n, 30 + i, cuda) for i in range(3))
+    before = fused_dots.launches
+    got = fused_dots(r, u, w)
+    assert fused_dots.launches == before + 1 and got.dtype == torch.float32
+    _assert_dots(got, fused_dots_ref(r, u, w), (r * u, w * u, u * u))
+    assert torch.equal(got, fused_dots(r, u, w))  # no atomics: the same bits every run
+    h = [v.to(torch.bfloat16) for v in (r, u, w)]
+    torch.testing.assert_close(fused_dots(*h), fused_dots_ref(*h), rtol=1e-3, atol=1e-3)
+    with pytest.raises(ValueError, match="shape"):
+        fused_dots(r, u[:-1], w)
+
+
+def test_general_format_solves_launch_their_kernels(cuda):
+    D = table1_matrix("Queen_4147", scale=0.01, device=cuda)
+    csr = csr_from_dia(D)
+    B, C = bell_from_csr(csr, device=cuda), csr_device_from_host(csr, device=cuda)
+    b = D.matvec(torch.full((D.n,), D.n ** -0.5, device=cuda))
+    runs = {}
+    for label, A, method, engine in (("bell", B, "pipecg", "auto"), ("csr", C, "pipecg", "auto"),
+                                     ("bell-torch", B, "pipecg", "torch"),
+                                     ("pcg", B, "pcg", "auto")):
+        p = repro_torch.plan(A, method=method, engine=engine, atol=0.0, rtol=1e-5, maxiter=200)
+        spmv_bell_cuda.launches = fused_vma_dots.launches = 0
+        res = p.solve(b)
+        d = p.describe()
+        runs[label] = (d.get("core"), d["spmv"], int(res.iterations), res.steps,
+                       spmv_bell_cuda.launches, fused_vma_dots.launches, bool(res.converged))
+    it, steps = runs["bell"][2], runs["bell"][3]
+    assert runs["bell"] == ("cuda", "cuda", it, steps, 3 + steps, steps, True)
+    assert runs["csr"][:2] == ("cuda", "segsum") and runs["csr"][4:] == (0, runs["csr"][3], True)
+    assert runs["bell-torch"][:2] == ("torch", "torch") and runs["bell-torch"][4:6] == (0, 0)
+    pcg = runs["pcg"]
+    assert pcg[:2] == (None, "cuda") and pcg[4:] == (1 + pcg[3], 0, True)
+    assert abs(pcg[2] - it) <= 2 and runs["csr"][2] == it == runs["bell-torch"][2]

@@ -86,7 +86,7 @@ def test_describe_keeps_jax_keys_and_names_the_core():
     assert repro_torch.plan(A, engine="fused_iter").describe()["core"] == "fused_iter"
     assert repro_torch.plan(A, engine="cuda").describe()["spmv_engine"] == "auto"
     with pytest.raises(ValueError, match="not ported"):
-        repro_torch.plan(A, method="pcg")
+        repro_torch.plan(A, method="h3")  # the distributed methods wait for their slice
     with pytest.raises(TypeError, match="does not accept"):
         repro_torch.plan(A, tile=256)
     with pytest.raises(ValueError, match="unknown iteration engine"):
@@ -122,10 +122,23 @@ def test_cli_on_cpu(capsys):
     assert "core=fused_iter" in out and "converged=True" in out
 
 
+def test_cli_methods_and_table1_matrices(capsys):
+    cli.main(["--matrix", "Queen_4147:0.002", "--device", "cpu", "--method", "pcg",
+              "--atol", "0", "--rtol", "1e-5"])
+    cli.main(["--matrix", "synthetic:500,9", "--device", "cpu", "--method", "chronopoulos",
+              "--atol", "0", "--rtol", "1e-5"])
+    out = capsys.readouterr().out
+    assert "N=8294" in out and "method=pcg" in out and "method=chronopoulos" in out
+    assert out.count("converged=True") == 2
+
+
 def test_port_imports_neither_jax_nor_repro():
     code = (
         "import sys, repro_torch, repro_torch.plan, repro_torch.api, repro_torch.convert\n"
-        "import repro_torch.launch.solve\n"
+        "import repro_torch.launch.solve, repro_torch.sparse.synthetic\n"
+        "import repro_torch.sparse.operators, repro_torch.core.pcg\n"
+        "import repro_torch.core.chronopoulos, repro_torch.kernels.spmv_bell\n"
+        "import repro_torch.kernels.fused_dot\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

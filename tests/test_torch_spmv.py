@@ -55,5 +55,7 @@ def test_engines_on_cpu():
     assert torch.equal(A.matvec(x), tsp.spmv_dia(A, x))
     with pytest.raises(ValueError, match="already registered"):
         tsp.register_spmv(tsp.DIAMatrix, "torch", tsp.spmv_dia)
+    # a dense tensor takes the dense fallback; an object with no matvec raises
+    assert torch.equal(tsp.spmv(2 * torch.eye(3), torch.ones(3)), torch.full((3,), 2.0))
     with pytest.raises(TypeError, match="unsupported matrix"):
-        tsp.spmv(torch.eye(3), torch.ones(3))
+        tsp.spmv(object(), torch.ones(3))
