@@ -35,11 +35,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
    solve of the Bell form is reported, not asserted.
 4. a fixed 200 iterations per engine on poisson125(128), median of 5, ms
    per iteration.
+2c. fused_adam against its plain version, bit for bit, at a ragged
+   n = 4,097 and at internlm2-1.8b's embedding (n = 189,530,112), p f32
+   and bf16 (and bf16 p with f32 g at 4,097), nonzero m and v, steps 1
+   and 10; one call timed at the embedding size and one whole-model pass
+   (219 tensors, bf16 p and g, f32 m and v); torch.optim.AdamW(fused=True)
+   on f32 parameters of the same sizes as a yardstick the port never
+   calls.
+2d. flash_attn against its plain version at (B, T, H, KV, hd) =
+   (8, 512, 16, 8, 128) and (1, 4096, 16, 8, 128) in f32 and bf16, one
+   non-causal Tk != Tq case and one 4:1 GQA case (f32 elementwise at
+   2e-5, bf16 per output row at 1e-2 of its norm); times at (8, 512, ...)
+   beside F.scaled_dot_product_attention as a yardstick. No path calls it.
 4b. the same on Queen_4147 for Bell auto, CSR auto, DIA auto, pcg and
    chronopoulos, at the largest count up to 200 that every one of them
    completes (the f32 residual may reach its floor and stop a run early),
    and the marginal ms per iteration of that count's second half; then
    ms per solve to rtol 1e-3 on each path, median of 5.
+5. training through the fused optimizer: (a) the launcher
+   ``repro_torch.launch.train.main`` at the reduced internlm2-1.8b config
+   for 30 steps with checkpoints, then resumed to 40; (b) the full-size
+   internlm2-1.8b (24 layers, bf16) through init_train_state ->
+   make_train_step -> batch_for_step (batch 8, seq 512), clip 1.0,
+   warmup_cosine (peak lr 6e-4), 20 steps: finite losses, the step-0
+   loss within 0.5 of ln V, the last five step losses below the first
+   five on average, and a lower mean loss than at init on five held-out
+   batches (20-24, never trained on); the initial model's loss on every
+   batch 0-24 is recorded beside the step losses; 219 fused_adam
+   launches per step, ms per step, tokens/s, the optimizer's ms beside
+   its bound, peak memory; (c) 5 steps from the same init with the plain
+   (tree) optimizer, held against (b).
 
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -64,6 +89,26 @@ BF16 = dict(rtol=2e-2, atol=1e-3)  # bf16 SPMV
 BF16_DOT_RTOL = 1e-3               # f32 sums of the same (exact) bf16 products
 SOLVE_RTOL = 1e-3                  # f32 Jacobi-PIPECG stalls near 1e-4 on poisson125
 TIMED_ITERS = 200
+# fused_adam: p, m and v equal to the plain version's bit for bit (the
+# kernel uses IEEE _rn intrinsics in the plain version's order)
+ATTN_F32 = 2e-5                          # rtol = atol (tests/test_kernels.py)
+# flash_attn bf16: the largest ||got - ref|| / ||ref|| over the hd entries
+# of one output row. The plain version rounds the probabilities to bf16
+# before the product with v and the kernel keeps them in f32, which moves
+# a row by a few 1e-3 of its norm; an elementwise atol would have to be as
+# large as the late causal rows (|o| ~ sqrt(e / (i + 1))) to pass that
+ATTN_BF16_ROW = 1e-2
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 512
+# peak lr and warmup of the full-size run: at 1.5e-3 the step losses
+# spike above their batches' initial losses; from 1e-3 down to 1.5e-4
+# they fall (python -m repro_torch.launch.lr_sweep, PERF.md)
+TRAIN_LR, TRAIN_WARMUP = 6e-4, 10
+PLAIN_STEPS = 5
+# fused vs plain optimizer: the same math, the f32 constants (1 - b1) and
+# (1 - b2) rounded once in f32 (kernel) or from double (plain), so m and
+# v differ by a few ulp and flip bf16 roundings of a few parameters; that
+# moves a loss of ~11.4 by far less than this
+PLAIN_LOSS_ATOL = 1e-2
 BASELINE_BAND = 2                  # pcg/chronopoulos vs pipecg iterations (tests/test_solvers.py)
 REPLACES = {
     "spmv_dia": "src/repro/kernels/spmv_dia/kernel.py:37",
@@ -71,6 +116,8 @@ REPLACES = {
     "fused_iter": "src/repro/kernels/fused_iter/kernel.py:95",
     "spmv_bell": "src/repro/kernels/spmv_bell/kernel.py:30",
     "fused_dots": "src/repro/kernels/fused_dot/kernel.py:27",
+    "fused_adam": "src/repro/kernels/fused_adam/kernel.py:34",
+    "flash_attn": "src/repro/kernels/flash_attn/kernel.py:65",
 }
 SOURCES = {
     "spmv_dia": "src/repro_torch/kernels/csrc/spmv_dia.cu",
@@ -78,6 +125,8 @@ SOURCES = {
     "fused_iter": "src/repro_torch/kernels/csrc/fused_iter.cu",
     "spmv_bell": "src/repro_torch/kernels/csrc/spmv_bell.cu",
     "fused_dots": "src/repro_torch/kernels/csrc/fused_dot.cu",
+    "fused_adam": "src/repro_torch/kernels/csrc/fused_adam.cu",
+    "flash_attn": "src/repro_torch/kernels/csrc/flash_attn.cu",
 }
 
 
@@ -91,14 +140,15 @@ def log(msg: str) -> None:
 
 
 def peak_rates(name: str):
-    """(bytes/s, f32 flop/s) from the data sheets, by the card's name."""
+    """(bytes/s, f32 flop/s, dense bf16 tensor flop/s) from the data
+    sheets, by the card's name."""
     if "H100" in name and "PCIe" in name:
-        return 2.0e12, 51e12
+        return 2.0e12, 51e12, 756e12
     if "H100" in name and "NVL" in name:
-        return 3.9e12, 60e12
+        return 3.9e12, 60e12, 835e12
     if "H200" in name:
-        return 4.8e12, 67e12
-    return 3.35e12, 67e12  # H100 SXM
+        return 4.8e12, 67e12, 989e12
+    return 3.35e12, 67e12, 989e12  # H100 SXM
 
 
 def main() -> None:
@@ -113,6 +163,11 @@ def main() -> None:
 
     import repro_torch
     from repro_torch.kernels import (
+        adamw_hyper,
+        flash_attention,
+        flash_attention_ref,
+        fused_adamw,
+        fused_adamw_ref,
         fused_dots,
         fused_dots_ref,
         fused_iter_ref,
@@ -159,10 +214,10 @@ def main() -> None:
     for line in info["log"].splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"  nvcc: {line.strip()}")
-    bw_peak, f32_peak = peak_rates(name)
+    bw_peak, f32_peak, bf16_peak = peak_rates(name)
     record.update(card=card, device=name, torch=torch.__version__, cuda=torch.version.cuda,
                   build_seconds=info["seconds"], peak_bytes_per_s=bw_peak,
-                  peak_f32_flops=f32_peak)
+                  peak_f32_flops=f32_peak, peak_bf16_flops=bf16_peak)
 
     def sync():
         torch.cuda.synchronize()
@@ -188,6 +243,17 @@ def main() -> None:
         if not torch.allclose(got.double(), want.double(), rtol=rtol, atol=atol):
             fail(f"{label}: kernel and plain version disagree (max abs err {err:.3e})")
         return err
+
+    def check_rows(label, got, want, limit) -> float:
+        """Fails where an output row (last axis) differs from ``want`` by
+        more than ``limit`` of its norm; returns the max abs err."""
+        d = got.double() - want.double()
+        rel = float((d.norm(dim=-1) / want.double().norm(dim=-1).clamp_min(1e-30)).max())
+        if not rel <= limit:
+            fail(f"{label}: kernel and plain version disagree (row-relative err {rel:.3e} "
+                 f"> {limit:.0e})")
+        log(f"  {label}: row-relative err {rel:.3e}")
+        return float(d.abs().max())
 
     def check_dots(label, got, want, scale) -> float:
         err = float((got.double() - want.double()).abs().max())
@@ -424,6 +490,169 @@ def main() -> None:
         f"{queen_dia_ms:.4f} ms (bound {(Q.n_diags * QN * 4 + 8 * QN) / bw_peak * 1e3:.4f} ms)")
     del qcsr
 
+    # ----------------------------------------------------------------- 2c
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model, make_generator
+
+    full_cfg = get_config("internlm2-1.8b")
+    full_api = build_model(full_cfg)
+    shapes = [tuple(t.shape) for t in full_api.empty_params("meta").parameters()]
+    n_model = full_api.n_params()
+    n_emb = full_cfg.vocab_size * full_cfg.d_model
+    if len(shapes) != 219 or sum(math.prod(s) for s in shapes) != n_model:
+        fail(f"internlm2-1.8b has {len(shapes)} tensors, {n_model} parameters")
+
+    def adam_inputs(n, p_dtype, g_dtype, seed):
+        """p ~ N(0, 1), g ~ 1e-2 N(0, 1), nonzero m and v (v >= 0)."""
+        g_ = torch.Generator(device=dev)
+        g_.manual_seed(seed)
+        p = torch.randn(n, generator=g_, device=dev).to(p_dtype)
+        g = (torch.randn(n, generator=g_, device=dev) * 1e-2).to(g_dtype)
+        m = torch.randn(n, generator=g_, device=dev) * 1e-3
+        v = torch.rand(n, generator=g_, device=dev) * 1e-4
+        return p, g, m, v
+
+    def hyper_at(step):
+        return adamw_hyper(3e-4, 0.9, 0.999, 1e-8, 0.1,
+                           torch.full((), step, dtype=torch.int32, device=dev))
+
+    t32, t16 = torch.float32, torch.bfloat16
+    errs.update(fused_adam=0.0, fused_adam_bf16=0.0)  # bit for bit, or fail
+    checked = []
+    for n, pairs in ((4_097, ((t32, t32), (t16, t16), (t16, t32))),
+                     (n_emb, ((t32, t32), (t16, t16)))):
+        for p_dtype, g_dtype in pairs:
+            key = "fused_adam" if p_dtype == t32 else "fused_adam_bf16"
+            label = f"fused_adam n={n} p={p_dtype} g={g_dtype}"
+            p, g, m, v = adam_inputs(n, p_dtype, g_dtype, 7)
+            for step in (1, 10):
+                hyper = hyper_at(step)
+                want = fused_adamw_ref(p, g, m, v, hyper)
+                before = fused_adamw.launches
+                fused_adamw(p, g, m, v, hyper)
+                sync()
+                if fused_adamw.launches != before + 1:
+                    fail(f"{label}: {fused_adamw.launches - before} launches, not 1")
+                for leaf, got, w in zip("pmv", (p, m, v), want):
+                    if not torch.equal(got, w):
+                        err = float((got.double() - w.double()).abs().max())
+                        fail(f"{label} step {step}: {leaf} differs from the plain version "
+                             f"(max abs err {err:.3e}), not bit for bit")
+            checked.append(label)
+            del p, g, m, v, want
+    log(f"fused_adam equals its plain version bit for bit: {checked}")
+    torch.cuda.empty_cache()
+
+    # one call at the embedding's size, and the torch.optim yardstick there
+    import torch.nn as nn
+
+    adam_torch = {}
+    for key, dtype in (("fused_adam", t32), ("fused_adam_bf16", t16)):
+        p, g, m, v = adam_inputs(n_emb, dtype, dtype, 8)
+        hyper = hyper_at(10)
+        times[key] = (timed(lambda: fused_adamw(p, g, m, v, hyper), 10),
+                      timed(lambda: fused_adamw_ref(p, g, m, v, hyper), 2, 3))
+        P = nn.Parameter(p.detach().clone())
+        P.grad = g.clone()
+        opt = torch.optim.AdamW([P], lr=3e-4, weight_decay=0.1, fused=True)
+        adam_torch[key] = timed(opt.step, 10)
+        del p, g, m, v, P, opt
+        torch.cuda.empty_cache()
+    # torch's fused AdamW keeps its moments in the parameters' dtype: only
+    # the f32 run computes the kernel's function (bf16 p with f32 m, v)
+    library["fused_adam"] = adam_torch["fused_adam"]
+    record["torch_adamw_bf16_state_embedding_ms"] = adam_torch["fused_adam_bf16"]
+
+    # one whole-model pass: 219 tensors, bf16 p and g, f32 m and v
+    tensors = [adam_inputs(math.prod(s), t16, t16, 100 + i) for i, s in enumerate(shapes)]
+    hyper = hyper_at(10)
+
+    def model_pass():
+        for p, g, m, v in tensors:
+            fused_adamw(p, g, m, v, hyper)
+
+    model_adam_ms = timed(model_pass, 1)
+    del tensors
+    torch.cuda.empty_cache()
+    params_f32 = []
+    for i, s in enumerate(shapes):
+        P = nn.Parameter(torch.randn(s, device=dev))
+        P.grad = torch.randn(s, device=dev) * 1e-2
+        params_f32.append(P)
+    opt = torch.optim.AdamW(params_f32, lr=3e-4, weight_decay=0.1, fused=True)
+    model_torch_adam_ms = timed(opt.step, 1)
+    del params_f32, opt
+    torch.cuda.empty_cache()
+    model_adam_bound = 22 * n_model / bw_peak * 1e3
+    log(f"fused_adam, one internlm2-1.8b pass ({len(shapes)} launches, {n_model:,} parameters, "
+        f"bf16 p and g): {model_adam_ms:.4f} ms (bound {model_adam_bound:.4f} ms); "
+        f"torch.optim.AdamW(fused=True), f32 parameters and moments: {model_torch_adam_ms:.4f} ms")
+    record.update(model_adam_ms=model_adam_ms, model_adam_bound_ms=model_adam_bound,
+                  model_torch_adamw_f32_ms=model_torch_adam_ms, fused_adam_bit_for_bit=checked)
+
+    # ----------------------------------------------------------------- 2d
+    import torch.nn.functional as F
+
+    def attn_inputs(B, Tq, Tk, H, KV, hd, dtype, seed):
+        g_ = torch.Generator(device=dev)
+        g_.manual_seed(seed)
+        q = torch.randn(B, Tq, H, hd, generator=g_, device=dev).to(dtype)
+        k = torch.randn(B, Tk, KV, hd, generator=g_, device=dev).to(dtype)
+        v = torch.randn(B, Tk, KV, hd, generator=g_, device=dev).to(dtype)
+        return q, k, v
+
+    errs.update(flash_attn=0.0, flash_attn_bf16=0.0)
+    attn_cases = [((8, 512, 512, 16, 8, 128), True), ((1, 4096, 4096, 16, 8, 128), True),
+                  ((2, 512, 1024, 16, 8, 128), False),  # Tk != Tq, full
+                  ((2, 1024, 1024, 16, 4, 128), True)]  # 4:1 GQA
+    for dtype in (t32, t16):
+        key = "flash_attn" if dtype == t32 else "flash_attn_bf16"
+        for (B, Tq, Tk, H, KV, hd), causal in attn_cases:
+            q, k, v = attn_inputs(B, Tq, Tk, H, KV, hd, dtype, 9)
+            before = flash_attention.launches
+            got = flash_attention(q, k, v, causal=causal)
+            sync()
+            if flash_attention.launches != before + 1:
+                fail(f"flash_attn: {flash_attention.launches - before} launches, not 1")
+            label = f"flash_attn {dtype} B={B} Tq={Tq} Tk={Tk} H={H} KV={KV} causal={causal}"
+            want = flash_attention_ref(q, k, v, causal=causal)
+            errs[key] = max(errs[key], check(label, got, want, rtol=ATTN_F32, atol=ATTN_F32)
+                            if dtype == t32 else check_rows(label, got, want, ATTN_BF16_ROW))
+            del q, k, v, got, want
+        log(f"flash_attn ({dtype}) agrees with its plain version on {len(attn_cases)} shapes")
+    torch.cuda.empty_cache()
+    B, T, H, KV, hd = 8, 512, 16, 8, 128  # the full-size trainer's attention shape
+    attn_pairs = B * H * T * (T + 1) // 2  # the (query, key) pairs under the causal mask
+    for key, dtype in (("flash_attn", t32), ("flash_attn_bf16", t16)):
+        q, k, v = attn_inputs(B, T, T, H, KV, hd, dtype, 10)
+        times[key] = (timed(lambda: flash_attention(q, k, v), 10),
+                      timed(lambda: flash_attention_ref(q, k, v), 3, 3))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        check_rows(f"scaled_dot_product_attention yardstick ({dtype})", sdpa.transpose(1, 2),
+                   flash_attention(q, k, v), 10 * ATTN_BF16_ROW)
+        library[key] = timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+        del q, k, v, qt, kt, vt, sdpa
+    torch.cuda.empty_cache()
+
+    def bound_of(nbytes, ops, peak_ops):
+        t_bytes, t_ops = nbytes / bw_peak * 1e3, ops / peak_ops * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    adam_ops = 17 * n_emb  # per element: 5 mul, 4 add/sub, 3 div, 1 sqrt, and the lr step
+    bounds["fused_adam"] = bound_of(28 * n_emb, adam_ops, f32_peak)
+    bounds["fused_adam_bf16"] = bound_of(22 * n_emb, adam_ops, f32_peak)
+    attn_bytes = (2 * B * T * H * hd + 2 * B * T * KV * hd)
+    bounds["flash_attn"] = bound_of(4 * attn_bytes, 4 * hd * attn_pairs, f32_peak)
+    bounds["flash_attn_bf16"] = bound_of(2 * attn_bytes, 4 * hd * attn_pairs, bf16_peak)
+    for kname in ("fused_adam", "fused_adam_bf16", "flash_attn", "flash_attn_bf16"):
+        log(f"{kname}: {times[kname][0]:.4f} ms (bound {bounds[kname][0]:.4f} ms, "
+            f"{bounds[kname][1]}), plain {times[kname][1]:.3f} ms, "
+            f"library {library.get(kname, float('nan')):.4f} ms")
+    log(f"torch.optim.AdamW(fused=True) at the embedding's size: f32 {adam_torch['fused_adam']:.4f} "
+        f"ms, bf16 parameters and moments {adam_torch['fused_adam_bf16']:.4f} ms")
+
     # ------------------------------------------------------------------ 3
     import scipy.sparse as sp
 
@@ -638,6 +867,253 @@ def main() -> None:
             f"median of 5)")
 
     # ------------------------------------------------------------------ 5
+    import contextlib
+    import gc
+    import io
+    import re
+    import tempfile
+
+    from repro_torch.data import SyntheticConfig, batch_for_step
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import (
+        AdamWConfig,
+        TrainConfig,
+        adamw_update,
+        batch_to_device,
+        init_train_state,
+        make_train_step,
+        next_token_loss,
+        warmup_cosine,
+    )
+
+    del A, A27, Q, QB, QC, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) the launcher at the reduced config: 30 steps with checkpoints, then resumed to 40
+    def run_launcher(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            launcher.main(argv)
+        out = buf.getvalue()
+        for line in out.splitlines():
+            log(f"  launcher: {line}")
+        return out
+
+    reduced_tensors = len(list(build_model(reduced(full_cfg)).empty_params("meta").parameters()))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as ckpt:
+        args = ["--arch", "internlm2-1.8b", "--fused-optimizer", "--save-every", "10",
+                "--ckpt-dir", ckpt]
+        fused_adamw.launches = 0
+        sync()
+        first = run_launcher(args + ["--steps", "30"])
+        second = run_launcher(args + ["--steps", "40"])
+        sync()
+        launches_5a = fused_adamw.launches
+    printed = [float(x) for x in re.findall(r"loss=(\S+)", first + second)]
+    if not printed or not all(math.isfinite(x) for x in printed):
+        fail(f"launcher losses not finite: {printed}")
+    for needle in ("device=cuda", "finished at step 30", "resumed from step 30",
+                   "finished at step 40"):
+        if needle not in first + second:
+            fail(f"launcher output lacks {needle!r}")
+    if "resumed" in first or launches_5a != 40 * reduced_tensors:
+        fail(f"launcher: {launches_5a} fused_adam launches, expected 40 x {reduced_tensors}")
+    log(f"launcher (reduced internlm2-1.8b, f32): 30 steps, resumed at 30, ran to 40; "
+        f"losses {printed}; {launches_5a} fused_adam launches")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the full-size trainer through the fused optimizer
+    V = full_cfg.vocab_size
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    dc = SyntheticConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab_size=V, seed=0)
+    sched = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+
+    def train(state, fused, n_steps):
+        """n_steps from ``state``; per-step ms from CUDA events around each step."""
+        step_fn = make_train_step(full_api, TrainConfig(
+            optimizer=AdamWConfig(lr=TRAIN_LR, clip_norm=1.0, apply_fused=fused)),
+            lr_schedule=sched)
+        losses, events = [], []
+        for s in range(n_steps):
+            batch = batch_to_device(batch_for_step(dc, s), dev)
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            state, metrics = step_fn(state, batch)
+            ev[1].record()
+            losses.append(metrics["loss"])
+            events.append(ev)
+        sync()
+        return state, torch.stack(losses).tolist(), [a.elapsed_time(e) for a, e in events]
+
+    held_out = range(TRAIN_STEPS, TRAIN_STEPS + 5)  # batches the 20 steps never see
+
+    def eval_losses(params, steps):
+        """The loss on the batches of ``steps`` (forward only)."""
+        out = []
+        with torch.no_grad():
+            for s_ in steps:
+                b_ = batch_to_device(batch_for_step(dc, s_), dev)
+                out.append(next_token_loss(full_api.forward(params, b_), b_["tokens"]))
+        return torch.stack(out).tolist()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(full_api, make_generator(0, dev))
+    sync()
+    init_s = time.perf_counter() - t0
+    at_init = eval_losses(state.params, range(TRAIN_STEPS + 5))
+    n_tensors = len(list(state.params.parameters()))
+    fused_adamw.launches = flash_attention.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    state, losses, step_ms = train(state, True, TRAIN_STEPS)
+    train_wall = time.perf_counter() - t0
+    launches_5b = fused_adamw.launches
+    flash_5b = flash_attention.launches
+    peak_bytes = torch.cuda.max_memory_allocated()
+    held_after = eval_losses(state.params, held_out)  # before the profiled steps train on 20-21
+    log(f"full internlm2-1.8b ({n_model:,} parameters, bf16, {n_tensors} tensors) trained "
+        f"{TRAIN_STEPS} steps at batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: losses {losses}")
+    if not all(math.isfinite(x) for x in losses):
+        fail("a full-size training loss is not finite")
+    if abs(losses[0] - math.log(V)) > 0.5:
+        fail(f"step-0 loss {losses[0]:.4f} is not within 0.5 of ln V = {math.log(V):.4f}")
+    head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    held_init = at_init[TRAIN_STEPS:]
+    log(f"step losses: first 5 mean {head:.4f}, last 5 mean {tail:.4f}; the initial model's "
+        f"loss on batches 0-{TRAIN_STEPS + 4}: {at_init}; held-out batches "
+        f"{TRAIN_STEPS}-{TRAIN_STEPS + 4} after {TRAIN_STEPS} steps: {held_after}")
+    if not tail < head:
+        fail(f"the mean of the last five step losses {tail:.4f} is not below the first five's "
+             f"{head:.4f}")
+    if not statistics.mean(held_after) < statistics.mean(held_init):
+        fail(f"the loss on the held-out batches did not fall: {held_init} -> {held_after}")
+    if n_tensors != 219 or launches_5b != TRAIN_STEPS * n_tensors or flash_5b != 0:
+        fail(f"full-size run: {launches_5b} fused_adam launches for {n_tensors} tensors x "
+             f"{TRAIN_STEPS} steps, {flash_5b} flash_attn launches")
+    ms_step = statistics.median(step_ms[5:])
+    tok_s = tokens_per_step / (ms_step / 1e3)
+    flops_share = 6 * n_model * tokens_per_step / bf16_peak / (ms_step / 1e3)
+
+    # where a step's device time goes: torch.profiler over two more steps
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernel_class(kname):
+        low = kname.lower()
+        for cls, keys in (("fused_adam", ("fused_adamw",)),
+                          ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "matmul", "sm90")),
+                          ("softmax", ("softmax",)),
+                          ("embedding", ("embedding", "index", "scatter", "gather")),
+                          ("reduction", ("reduce", "norm")),
+                          ("elementwise", ("elementwise", "vectorized", "unrolled"))):
+            if any(k in low for k in keys):
+                return cls
+        return "other"
+
+    step_fn = make_train_step(full_api, TrainConfig(optimizer=AdamWConfig(
+        lr=TRAIN_LR, clip_norm=1.0, apply_fused=True)), lr_schedule=sched)
+    prof_batches = [batch_to_device(batch_for_step(dc, s_), dev)
+                    for s_ in range(TRAIN_STEPS, TRAIN_STEPS + 2)]
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b_ in prof_batches:
+            state, _ = step_fn(state, b_)
+        sync()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for evt in prof.key_averages():  # the kernels themselves, not the ops that launched them
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            t_us = getattr(evt, "self_device_time_total", None)
+            if t_us is None:
+                t_us = evt.self_cuda_time_total
+            if t_us > 0:
+                by_kernel[evt.key] = (t_us / 1e3 / 2, evt.count // 2)
+    if by_kernel:
+        device_ms = sum(t for t, _ in by_kernel.values())
+        by_class = {}
+        for kname, (t, c) in by_kernel.items():
+            cls = kernel_class(kname)
+            by_class[cls] = (by_class.get(cls, (0.0, 0))[0] + t, by_class.get(cls, (0.0, 0))[1] + c)
+        breakdown = {"step_wall_ms_profiled": prof_wall_ms / 2, "device_ms": device_ms,
+                     "by_class": {k: {"ms": t, "launches": c} for k, (t, c) in
+                                  sorted(by_class.items(), key=lambda kv: -kv[1][0])},
+                     "top": [{"kernel": k[:120], "ms": t, "launches": c} for k, (t, c) in
+                             sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]]}
+        log(f"profiled step (torch.profiler, mean of 2; host clock {prof_wall_ms / 2:.2f} ms "
+            f"with the profiler on): kernels busy {device_ms:.2f} ms")
+        for cls, v in breakdown["by_class"].items():
+            log(f"  {cls}: {v['ms']:.2f} ms in {v['launches']} launches")
+        for row in breakdown["top"]:
+            log(f"  {row['ms']:8.3f} ms x{row['launches']:4d}  {row['kernel']}")
+    else:
+        breakdown = "not measured: torch.profiler recorded no device time"
+        log(f"profiled step: {breakdown}")
+
+    # the optimizer phase alone (global norm, clip, hyper, 219 fused launches)
+    named = dict(state.params.named_parameters())
+    g_ = torch.Generator(device=dev)
+    g_.manual_seed(1)
+    grads = {k_: (torch.randn(t.shape, generator=g_, device=dev) * 1e-3).to(t.dtype)
+             for k_, t in named.items()}
+    holder = {"opt": state.opt}
+    lr_t = torch.full((), 1e-4, device=dev)
+    fused_cfg = AdamWConfig(lr=TRAIN_LR, clip_norm=1.0, apply_fused=True)
+
+    def optimizer_phase():
+        _, holder["opt"], _ = adamw_update(named, grads, holder["opt"], fused_cfg, lr=lr_t)
+
+    opt_ms = timed(optimizer_phase, 1)
+    if isinstance(breakdown, dict):
+        breakdown["idle_share"] = 1 - breakdown["device_ms"] / ms_step
+        log(f"device idle share of a step: {breakdown['idle_share']:.3f} (kernel time of the "
+            f"profiled steps against the {ms_step:.2f} ms unprofiled step)")
+    log(f"full-size step: {ms_step:.2f} ms (median of steps 5-{TRAIN_STEPS - 1}; all "
+        f"{[round(x, 2) for x in step_ms]}), {tok_s:.0f} tokens/s, "
+        f"{100 * flops_share:.1f}% of 6 N tokens / {bf16_peak / 1e12:.0f} TFLOP/s; optimizer "
+        f"phase {opt_ms:.3f} ms (fused pass bound {model_adam_bound:.3f} ms; the pass alone "
+        f"{model_adam_ms:.3f} ms); peak memory {peak_bytes / 2**30:.2f} GiB; init {init_s:.1f} s, "
+        f"{TRAIN_STEPS} steps {train_wall:.1f} s on the host clock")
+    del state, named, grads, holder
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the plain (tree) optimizer from the same init
+    state = init_train_state(full_api, make_generator(0, dev))
+    before = fused_adamw.launches
+    state, plain_losses, plain_step_ms = train(state, False, PLAIN_STEPS)
+    if fused_adamw.launches != before:
+        fail("the plain optimizer launched fused_adam")
+    if plain_losses[:2] != losses[:2]:
+        fail(f"fused and plain paths differ before any lr: {plain_losses[:2]} vs {losses[:2]}")
+    loss_diff = max(abs(a - b_) for a, b_ in zip(plain_losses, losses))
+    if loss_diff > PLAIN_LOSS_ATOL:
+        fail(f"fused and plain losses differ by {loss_diff:.3e}: {plain_losses} vs "
+             f"{losses[:PLAIN_STEPS]}")
+    log(f"plain optimizer from the same init: losses {plain_losses} (max |diff| {loss_diff:.3e}), "
+        f"steps {[round(x, 2) for x in plain_step_ms]} ms")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["training"] = {
+        "launcher_losses": printed, "launcher_fused_adam_launches": launches_5a,
+        "arch": full_cfg.name, "n_params": n_model, "n_tensors": n_tensors,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
+        "losses": losses, "first5_mean": head, "last5_mean": tail,
+        "loss_at_init_by_batch": at_init, "held_out_after": held_after,
+        "step_ms": step_ms, "ms_per_step": ms_step, "tokens_per_s": tok_s,
+        "share_of_6N_tokens_at_peak": flops_share, "optimizer_phase_ms": opt_ms,
+        "fused_pass_ms": model_adam_ms, "fused_pass_bound_ms": model_adam_bound,
+        "peak_memory_bytes": peak_bytes, "fused_adam_launches": launches_5b,
+        "plain_losses": plain_losses, "plain_step_ms": plain_step_ms,
+        "plain_max_abs_loss_diff": loss_diff, "init_s": init_s, "train_wall_s": train_wall,
+        "profile": breakdown,
+    }
+
+    # ------------------------------------------------------------------ 6
     # the path whose run each kernel's launches are read from (None: the
     # kernel is on no solver path, in the JAX package either)
     paths = {"spmv_dia": ("poisson125 auto", runs["auto"]),
@@ -646,7 +1122,13 @@ def main() -> None:
              "fused_iter": ("poisson125 auto", runs["auto"]),
              "spmv_bell": ("Queen_4147 bell-auto", qruns["bell-auto"]),
              "spmv_bell_bf16": ("Queen_4147 pcg-bf16", qruns["pcg-bf16"]),
-             "fused_dots": (None, None)}
+             "fused_dots": (None, None),
+             "fused_adam": ("reduced internlm2-1.8b launcher, 40 steps (5a)",
+                            {"launches": {"fused_adam": launches_5a}}),
+             "fused_adam_bf16": ("full internlm2-1.8b trainer, 20 steps (5b)",
+                                 {"launches": {"fused_adam": launches_5b}}),
+             "flash_attn": (None, None),
+             "flash_attn_bf16": (None, None)}
     kernels = []
     for kname, (path, run) in paths.items():
         base = kname.removesuffix("_bf16")

@@ -5,7 +5,10 @@ and Chronopoulos–Gear baselines on an NVIDIA H100, for DIA (banded),
 Block-ELLPACK and CSR operators, with the JAX package's Pallas TPU
 kernels on those paths (``spmv_dia``, ``fused_vma``, ``fused_iter``,
 ``spmv_bell``, and ``fused_dot`` beside them) rewritten as hand-written
-CUDA kernels.
+CUDA kernels. Its LM substrate trains the dense decoder family
+(``configs``, ``models``, ``train``, ``ckpt``, ``runtime``,
+``launch.train``) with AdamW through the ``fused_adam`` CUDA kernel;
+``flash_attn`` is ported beside it.
 The JAX package ``repro`` stays the reference; this package imports
 nothing of it, nor JAX.
 

@@ -1,0 +1,28 @@
+"""Architecture configs: one module per ported architecture (+ shapes).
+
+Use ``get_config("<arch-id>")`` / ``list_configs()`` / ``SHAPES``. The
+four dense configs are registered; the MoE, SSM, hybrid, encoder-decoder
+and VLM configs wait with their families (ROADMAP).
+"""
+from .base import SHAPES, ArchConfig, ShapeConfig, get_config, list_configs, reduced
+
+_LOADED = False
+
+
+def _load_all():
+    global _LOADED
+    if _LOADED:
+        return
+    from . import internlm2_1_8b, qwen2_5_14b, qwen3_8b, stablelm_1_6b  # noqa: F401
+
+    _LOADED = True
+
+
+__all__ = [
+    "ArchConfig",
+    "SHAPES",
+    "ShapeConfig",
+    "get_config",
+    "list_configs",
+    "reduced",
+]

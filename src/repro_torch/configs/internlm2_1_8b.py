@@ -1,0 +1,20 @@
+"""internlm2-1.8b — GQA [arXiv:2403.17297; hf].
+24L d_model=2048 16H (GQA kv=8) d_ff=8192 vocab=92544.
+"""
+from .base import ArchConfig, register
+
+
+@register("internlm2-1.8b")
+def config() -> ArchConfig:
+    return ArchConfig(
+        name="internlm2-1.8b",
+        family="dense",
+        n_layers=24,
+        d_model=2048,
+        n_heads=16,
+        n_kv_heads=8,
+        d_ff=8192,
+        vocab_size=92544,
+        rope_theta=1000000.0,
+        source="[arXiv:2403.17297; hf]",
+    )

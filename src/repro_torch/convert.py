@@ -1,15 +1,22 @@
-"""Carry an operator across from numpy arrays (e.g. the JAX package's).
+"""Carry an operator, or an LM's parameters and optimizer state, across
+from numpy arrays (e.g. the JAX package's).
 
-The tests build an operator or preconditioner with the JAX package, take
-its numpy arrays, and hand them to the port through these functions;
-nothing here imports JAX. ``device`` is required (``None`` means CUDA).
+The tests build an operator, a preconditioner or a model with the JAX
+package, take its numpy arrays, and hand them to the port through these
+functions; nothing here imports JAX. ``device`` is required (``None``
+means CUDA). The JAX package stacks each LM layer weight under a leading
+``layers`` axis; the port keeps one module per layer, so the LM
+converters only unstack (and ``lm_arrays_from_params`` stacks back).
 """
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
 
 from .core.preconditioners import BlockJacobiPC, JacobiPC
+from .configs.base import ArchConfig
 from .kernels.common import resolve_device
 from .sparse.formats import BellMatrix, CSRMatrix, DIAMatrix
 
@@ -19,6 +26,9 @@ __all__ = [
     "csr_from_arrays",
     "jacobi_from_arrays",
     "block_jacobi_from_arrays",
+    "lm_params_from_arrays",
+    "lm_arrays_from_params",
+    "train_state_from_arrays",
 ]
 
 
@@ -70,3 +80,106 @@ def block_jacobi_from_arrays(inv_blocks: np.ndarray, block: int, *, device) -> B
     if inv_blocks.ndim != 3 or inv_blocks.shape[1:] != (block, block):
         raise ValueError(f"inv_blocks shape {inv_blocks.shape} != (nb, {block}, {block})")
     return BlockJacobiPC(inv_blocks=_tensor(inv_blocks, device), block=int(block))
+
+
+def _host_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16: carry the bits
+        return torch.from_numpy(np.array(a.view(np.int16), copy=True)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _by_port_name(cfg: ArchConfig, tree: Mapping) -> dict:
+    """{port parameter name: array} of a JAX-layout LM tree (layers unstacked)."""
+    out = {}
+
+    def walk(node: Mapping, prefix: str, layer: int | None):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{k}.", layer)
+            else:
+                out[f"{prefix}{k}"] = v if layer is None else np.asarray(v)[layer]
+
+    top = dict(tree)
+    layers = top.pop("layers")
+    walk(top, "", None)
+    for i in range(cfg.n_layers):
+        walk(layers, f"layers.{i}.", i)
+    return out
+
+
+@torch.no_grad()
+def _fill(named: dict, arrays: dict, device: torch.device, what: str) -> None:
+    if set(named) != set(arrays):
+        raise ValueError(f"{what}: names differ: port-only {sorted(set(named) - set(arrays))}, "
+                         f"given-only {sorted(set(arrays) - set(named))}")
+    for k, t in named.items():
+        src = _host_tensor(arrays[k])
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(f"{what} {k}: shape {tuple(src.shape)} != {tuple(t.shape)}")
+        t.copy_(src.to(device))
+
+
+def lm_params_from_arrays(cfg: ArchConfig, tree: Mapping, *, device):
+    """The port's parameters (a ``ParamTree``, in ``cfg.dtype``) from a
+    JAX-layout dense LM parameter tree of numpy arrays."""
+    from .models.zoo import build_model
+
+    params = build_model(cfg).empty_params(device)
+    _fill(dict(params.named_parameters()), _by_port_name(cfg, tree), params.embedding.device,
+          "params")
+    return params
+
+
+def _set(tree: dict, dotted: str, value) -> None:
+    *path, leaf = dotted.split(".")
+    for part in path:
+        tree = tree.setdefault(part, {})
+    tree[leaf] = value
+
+
+def lm_arrays_from_params(cfg: ArchConfig, params) -> dict:
+    """The inverse: a JAX-layout tree of numpy arrays (layers stacked; bf16
+    as float32, which holds every bf16 value exactly)."""
+    tree: dict = {}
+    per_layer: dict = {}
+    for name, t in params.named_parameters():
+        t = t.detach().cpu()
+        a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            per_layer.setdefault(rest, [None] * cfg.n_layers)[int(i)] = a
+        else:
+            _set(tree, name, a)
+    tree["layers"] = {}
+    for rest, arrays in per_layer.items():
+        _set(tree["layers"], rest, np.stack(arrays))
+    return tree
+
+
+def train_state_from_arrays(cfg: ArchConfig, state, *, device):
+    """The port's ``TrainState`` from the JAX package's (a ``TrainState``
+    of numpy arrays: ``params``, ``opt`` with ``m``, ``v``, ``step`` and
+    ``prev_norm``, and ``step``)."""
+    from .train.optimizer import AdamWState
+    from .train.train_step import TrainState
+
+    dev = resolve_device(device)
+    params = lm_params_from_arrays(cfg, state.params, device=dev)
+    moments = []
+    for key in ("m", "v"):
+        arrays = _by_port_name(cfg, getattr(state.opt, key))
+        named = {k: torch.empty(np.shape(a), dtype=torch.float32, device=dev)
+                 for k, a in arrays.items()}
+        _fill(named, arrays, dev, f"opt.{key}")
+        moments.append({k: named[k] for k, _ in params.named_parameters()})
+
+    def scalar(a, dtype):
+        return torch.tensor(np.asarray(a).item(), dtype=dtype, device=dev)
+
+    return TrainState(
+        params=params,
+        opt=AdamWState(m=moments[0], v=moments[1], step=scalar(state.opt.step, torch.int32),
+                       prev_norm=scalar(state.opt.prev_norm, torch.float32)),
+        step=scalar(state.step, torch.int32),
+    )

@@ -1,0 +1,161 @@
+"""Shared model-building blocks: the parameter layout, norms and RoPE.
+
+Parameters are declared as a nested dict of ``ParamSpec(shape, init)``,
+as in the JAX package; lists stand for per-layer stacks. From that one
+layout the port derives the parameter count (no allocation) and a
+``ParamTree`` module that holds one ``nn.Parameter`` per spec. The JAX
+package stacks each layer weight under a leading ``layers`` axis; here
+every layer is its own module (a ``ModuleList``), so a per-layer weight
+gets a gradient of its own size, and ``convert.lm_params_from_arrays``
+only unstacks. ``x @ W`` keeps W as (d_in, d_out), as in JAX.
+
+The JAX package's sharding hints (``shard_hint``, ``use_sharding_rules``)
+have no one-card counterpart.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+from torch import nn
+
+__all__ = [
+    "DTYPES",
+    "ParamSpec",
+    "ParamTree",
+    "init_tensor",
+    "count_params",
+    "make_norm_params",
+    "rmsnorm",
+    "layernorm",
+    "apply_norm",
+    "rope_angles",
+    "apply_rope",
+    "causal_mask_bias",
+]
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"  # normal | zeros | ones
+    scale: float = 1.0
+
+
+def init_tensor(spec: ParamSpec, dtype: torch.dtype, generator: torch.Generator | None,
+                device) -> torch.Tensor:
+    """The JAX package's init rule (``common.py:_init_array``): zeros, ones
+    times ``scale``, or normal with std ``scale / sqrt(fan_in)``, where
+    fan_in is ``shape[-2]`` for 2-D leaves (so the (V, d) embedding draws
+    with std 1/sqrt(V)). Normals are drawn in f32 from ``generator`` and
+    cast. ``generator=None`` leaves the tensor uninitialised (the
+    converter fills it)."""
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.full(spec.shape, spec.scale, dtype=dtype, device=device)
+    if generator is None:
+        return torch.empty(spec.shape, dtype=dtype, device=device)
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    std = spec.scale / math.sqrt(max(fan_in, 1))
+    draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
+    return (draw * std).to(dtype)
+
+
+def count_params(layout) -> int:
+    if isinstance(layout, ParamSpec):
+        return math.prod(layout.shape)
+    if isinstance(layout, list):
+        return sum(count_params(x) for x in layout)
+    return sum(count_params(x) for x in layout.values())
+
+
+class ParamTree(nn.Module):
+    """A module holding one parameter per ``ParamSpec`` of a layout; nested
+    dicts become submodules and lists ``ModuleList``s. ``p["wq"]`` reads a
+    parameter or submodule, as the JAX functions index their dicts."""
+
+    def __init__(self, layout: dict, *, dtype: torch.dtype, device,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        for name, spec in layout.items():
+            if isinstance(spec, ParamSpec):
+                self.register_parameter(
+                    name, nn.Parameter(init_tensor(spec, dtype, generator, device)))
+            elif isinstance(spec, list):
+                setattr(self, name, nn.ModuleList(
+                    ParamTree(s, dtype=dtype, device=device, generator=generator) for s in spec))
+            else:
+                setattr(self, name, ParamTree(spec, dtype=dtype, device=device,
+                                              generator=generator))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def make_norm_params(d: int, kind: str) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": ParamSpec((d,), init="ones")}
+    return {"scale": ParamSpec((d,), init="ones"), "bias": ParamSpec((d,), init="zeros")}
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    # the JAX order: normalise in f32, cast to x's dtype, then scale
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * scale + bias
+
+
+def apply_norm(x: torch.Tensor, params, kind: str) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    return layernorm(x, params["scale"], params["bias"])
+
+
+# --------------------------------------------------------------------------
+# rotary position embeddings
+# --------------------------------------------------------------------------
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) int -> cos/sin of shape (..., head_dim//2), f32."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs  # (..., half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Half-split (not interleaved) rotation. x (..., seq, heads, head_dim);
+    cos/sin (seq, head_dim//2) or broadcastable; computed in f32."""
+    half = x.shape[-1] // 2
+    c = cos[..., :, None, :]
+    s = sin[..., :, None, :]
+    xf1, xf2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s], dim=-1).to(x.dtype)
+
+
+def causal_mask_bias(q_len: int, kv_len: int, q_offset: int = 0, dtype=torch.float32,
+                     device=None) -> torch.Tensor:
+    """(q_len, kv_len) additive bias: 0 where kv <= q_offset + q, -1e30 after."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    zero = torch.zeros((), dtype=dtype, device=device)
+    return torch.where(kv_pos <= q_pos, zero, torch.full((), -1e30, dtype=dtype, device=device))

@@ -5,14 +5,24 @@ the card run ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/tes
 The file imports neither JAX nor ``repro``: the card's machine has no JAX.
 Tolerances: f32 vectors rtol/atol 1e-5; dots rtol 1e-4 with atol
 1e-6·Σ|aᵢbᵢ| (f32 sums in another order); bf16 SPMV rtol 2e-2; bf16
-dots rtol 1e-3 (f32 sums of the same bf16 products).
+dots rtol 1e-3 (f32 sums of the same bf16 products); fused AdamW p rtol/atol
+1e-5 (f32) and 2e-2 (bf16), m and v rtol 1e-5 / atol 1e-6; attention 2e-5
+(f32) and 4e-2 (bf16) (tests/test_kernels.py's); a train step's loss rtol
+1e-4 against the same step on the CPU (f32 sums in another order).
 """
 import numpy as np
 import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import get_config, reduced
+from repro_torch.data import SyntheticConfig, batch_for_step
 from repro_torch.kernels import (
+    adamw_hyper,
+    flash_attention,
+    flash_attention_ref,
+    fused_adamw,
+    fused_adamw_ref,
     fused_dots,
     fused_dots_ref,
     fused_iter_ref,
@@ -24,6 +34,7 @@ from repro_torch.kernels import (
     spmv_dia_cuda,
     spmv_dia_ref,
 )
+from repro_torch.models import build_model, make_generator
 from repro_torch.sparse import (
     bell_from_csr,
     csr_device_from_host,
@@ -32,6 +43,15 @@ from repro_torch.sparse import (
     poisson125,
     synthetic_spd_dia,
     table1_matrix,
+)
+from repro_torch.train import (
+    AdamWConfig,
+    TrainConfig,
+    TrainState,
+    adamw_init,
+    batch_to_device,
+    init_train_state,
+    make_train_step,
 )
 
 VEC = dict(rtol=1e-5, atol=1e-5)
@@ -199,3 +219,71 @@ def test_general_format_solves_launch_their_kernels(cuda):
     pcg = runs["pcg"]
     assert pcg[:2] == (None, "cuda") and pcg[4:] == (1 + pcg[3], 0, True)
     assert abs(pcg[2] - it) <= 2 and runs["csr"][2] == it == runs["bell-torch"][2]
+
+
+def test_fused_adam_matches_plain(cuda):
+    for p_dtype, g_dtype, n in [(p_, g_, n) for p_, g_ in ((torch.float32, torch.float32),
+                                                         (torch.bfloat16, torch.bfloat16),
+                                                         (torch.bfloat16, torch.float32))
+                                for n in (1, 4_097, 1_000_003)]:  # ragged: masked tail
+        p = _randn(n, 40, cuda).to(p_dtype)
+        g = _randn(n, 41, cuda).to(g_dtype)
+        m, v = _randn(n, 42, cuda) * 0.1, _randn(n, 43, cuda).abs() * 0.01
+        for step in (1, 10):
+            hyper = adamw_hyper(3e-4, 0.9, 0.999, 1e-8, 0.1, torch.tensor(step, device=cuda))
+            want = fused_adamw_ref(p, g, m, v, hyper)
+            before = fused_adamw.launches
+            got = fused_adamw(p, g, m, v, hyper)
+            torch.cuda.synchronize()
+            assert fused_adamw.launches == before + 1 and got[0] is p
+            # bit for bit: IEEE _rn intrinsics in the plain version's order
+            for name, a, b in zip("pmv", (p, m, v), want):
+                assert torch.equal(a, b), (name, p_dtype, g_dtype, n, step)
+    with pytest.raises(TypeError, match="f32/f32"):
+        fused_adamw(p.double(), g.double(), m, v, hyper)
+    with pytest.raises(ValueError, match="distinct"):
+        fused_adamw(p, g, m, m, hyper)
+
+
+def test_flash_attention_matches_plain(cuda):
+    cases = [((2, 256, 4, 2, 64), 256, True), ((1, 96, 8, 2, 128), 96, True),  # 4:1 GQA, ragged
+             ((1, 128, 2, 2, 32), 256, False), ((2, 512, 16, 8, 128), 512, True)]
+    for dtype, ((B, T, H, KV, hd), Tk, causal) in [(d, c) for d in (torch.float32, torch.bfloat16)
+                                                   for c in cases]:
+        q = _randn(B * T * H * hd, 50, cuda).reshape(B, T, H, hd).to(dtype)
+        k = _randn(B * Tk * KV * hd, 51, cuda).reshape(B, Tk, KV, hd).to(dtype)
+        v = _randn(B * Tk * KV * hd, 52, cuda).reshape(B, Tk, KV, hd).to(dtype)
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1 and got.dtype == dtype
+        want = flash_attention_ref(q, k, v, causal).double()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.double(), want, rtol=2e-5, atol=2e-5)
+        else:  # per output row: the plain version rounds the probabilities to bf16
+            rel = (got.double() - want).norm(dim=-1) / want.norm(dim=-1)
+            assert float(rel.max()) <= 1e-2, (B, T, H, KV, hd, Tk, causal, float(rel.max()))
+    with pytest.raises(ValueError, match="%"):
+        flash_attention(q[:, :100], k[:, :100], v[:, :100], q_tile=64)
+
+
+def test_reduced_train_step_on_the_card(cuda):
+    cfg = reduced(get_config("internlm2-1.8b"))
+    api = build_model(cfg)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3, clip_norm=1.0, apply_fused=True))
+    cpu = init_train_state(api, make_generator(0, "cpu"))
+    params = api.init_params(make_generator(0, "cpu")).to(cuda)  # the same draws
+    gpu = TrainState(params, adamw_init(dict(params.named_parameters())),
+                     torch.zeros((), dtype=torch.int32, device=cuda))
+    step = make_train_step(api, tc)
+    dc = SyntheticConfig(batch=4, seq_len=64, vocab_size=cfg.vocab_size, seed=1)
+    n_tensors = len(list(params.parameters()))
+    fused_adamw.launches = 0
+    for s in range(3):
+        batch = batch_for_step(dc, s)
+        cpu, m_cpu = step(cpu, batch_to_device(batch, "cpu"))
+        gpu, m_gpu = step(gpu, batch_to_device(batch, cuda))
+        torch.testing.assert_close(m_gpu["loss"].cpu(), m_cpu["loss"], rtol=1e-4, atol=0)
+    torch.cuda.synchronize()
+    assert fused_adamw.launches == 3 * n_tensors == 3 * (3 + 4 * 9)
+    assert int(gpu.step) == 3 and gpu.params.embedding.device.type == "cuda"

@@ -138,7 +138,10 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.launch.solve, repro_torch.sparse.synthetic\n"
         "import repro_torch.sparse.operators, repro_torch.core.pcg\n"
         "import repro_torch.core.chronopoulos, repro_torch.kernels.spmv_bell\n"
-        "import repro_torch.kernels.fused_dot\n"
+        "import repro_torch.kernels.fused_dot, repro_torch.kernels.fused_adam\n"
+        "import repro_torch.kernels.flash_attn, repro_torch.configs, repro_torch.data\n"
+        "import repro_torch.models, repro_torch.train, repro_torch.ckpt, repro_torch.runtime\n"
+        "import repro_torch.launch.train, repro_torch.launch.lr_sweep\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
