@@ -44,9 +44,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    calls.
 2d. flash_attn against its plain version at (B, T, H, KV, hd) =
    (8, 512, 16, 8, 128) and (1, 4096, 16, 8, 128) in f32 and bf16, one
-   non-causal Tk != Tq case and one 4:1 GQA case (f32 elementwise at
-   2e-5, bf16 per output row at 1e-2 of its norm); times at (8, 512, ...)
-   beside F.scaled_dot_product_attention as a yardstick. No path calls it.
+   non-causal Tk != Tq case, one 4:1 GQA case and stablelm-1.6b's
+   (8, 512, 32, 32, 64) (f32 elementwise at 2e-5, bf16 per output row at
+   1e-2 of its norm); two calls give equal bits; the bf16 entry's SASS
+   must hold tensor-core instructions (HMMA or HGMMA, from cuobjdump); the
+   bf16 kernel's per-row distance from an f32-probability result is
+   printed; times and TFLOP/s of both entries at (8, 512, 16, 8, 128) and
+   of bf16 at (1, 4096, 16, 8, 128), beside F.scaled_dot_product_attention
+   as a yardstick and the operations bound. No path calls it.
 4b. the same on Queen_4147 for Bell auto, CSR auto, DIA auto, pcg and
    chronopoulos, at the largest count up to 200 that every one of them
    completes (the f32 residual may reach its floor and stop a run early),
@@ -75,6 +80,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -93,10 +99,11 @@ TIMED_ITERS = 200
 # kernel uses IEEE _rn intrinsics in the plain version's order)
 ATTN_F32 = 2e-5                          # rtol = atol (tests/test_kernels.py)
 # flash_attn bf16: the largest ||got - ref|| / ||ref|| over the hd entries
-# of one output row. The plain version rounds the probabilities to bf16
-# before the product with v and the kernel keeps them in f32, which moves
-# a row by a few 1e-3 of its norm; an elementwise atol would have to be as
-# large as the late causal rows (|o| ~ sqrt(e / (i + 1))) to pass that
+# of one output row. The plain version rounds the normalised probabilities
+# to bf16 before the product with v, the kernel the unnormalised ones
+# (dividing at the end), which moves a row by a few 1e-3 of its norm; an
+# elementwise atol would have to be as large as the late causal rows
+# (|o| ~ sqrt(e / (i + 1))) to pass that
 ATTN_BF16_ROW = 1e-2
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 512
 # peak lr and warmup of the full-size run: at 1.5e-3 the step losses
@@ -604,7 +611,9 @@ def main() -> None:
     errs.update(flash_attn=0.0, flash_attn_bf16=0.0)
     attn_cases = [((8, 512, 512, 16, 8, 128), True), ((1, 4096, 4096, 16, 8, 128), True),
                   ((2, 512, 1024, 16, 8, 128), False),  # Tk != Tq, full
-                  ((2, 1024, 1024, 16, 4, 128), True)]  # 4:1 GQA
+                  ((2, 1024, 1024, 16, 4, 128), True),  # 4:1 GQA
+                  ((8, 512, 512, 32, 32, 64), True)]    # stablelm-1.6b, hd 64
+    f32_prob_dist = 0.0
     for dtype in (t32, t16):
         key = "flash_attn" if dtype == t32 else "flash_attn_bf16"
         for (B, Tq, Tk, H, KV, hd), causal in attn_cases:
@@ -614,42 +623,97 @@ def main() -> None:
             sync()
             if flash_attention.launches != before + 1:
                 fail(f"flash_attn: {flash_attention.launches - before} launches, not 1")
-            label = f"flash_attn {dtype} B={B} Tq={Tq} Tk={Tk} H={H} KV={KV} causal={causal}"
+            label = f"flash_attn {dtype} B={B} Tq={Tq} Tk={Tk} H={H} KV={KV} hd={hd} causal={causal}"
+            if not torch.equal(got, flash_attention(q, k, v, causal=causal)):
+                fail(f"{label}: two calls on the same inputs differ")
             want = flash_attention_ref(q, k, v, causal=causal)
             errs[key] = max(errs[key], check(label, got, want, rtol=ATTN_F32, atol=ATTN_F32)
                             if dtype == t32 else check_rows(label, got, want, ATTN_BF16_ROW))
+            if dtype == t16:  # how far the kernel sits from f32 probabilities (the TPU kernel's)
+                want32 = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+                d = got.double() - want32.double()
+                rel = float((d.norm(dim=-1) / want32.double().norm(dim=-1).clamp_min(1e-30)).max())
+                f32_prob_dist = max(f32_prob_dist, rel)
+                log(f"  {label}: row-relative distance from f32 probabilities {rel:.3e}")
+                del want32, d
             del q, k, v, got, want
         log(f"flash_attn ({dtype}) agrees with its plain version on {len(attn_cases)} shapes")
+    record["flash_attn_bf16_row_dist_from_f32_probabilities"] = f32_prob_dist
     torch.cuda.empty_cache()
-    B, T, H, KV, hd = 8, 512, 16, 8, 128  # the full-size trainer's attention shape
-    attn_pairs = B * H * T * (T + 1) // 2  # the (query, key) pairs under the causal mask
-    for key, dtype in (("flash_attn", t32), ("flash_attn_bf16", t16)):
-        q, k, v = attn_inputs(B, T, T, H, KV, hd, dtype, 10)
-        times[key] = (timed(lambda: flash_attention(q, k, v), 10),
-                      timed(lambda: flash_attention_ref(q, k, v), 3, 3))
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-        check_rows(f"scaled_dot_product_attention yardstick ({dtype})", sdpa.transpose(1, 2),
-                   flash_attention(q, k, v), 10 * ATTN_BF16_ROW)
-        library[key] = timed(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-        del q, k, v, qt, kt, vt, sdpa
-    torch.cuda.empty_cache()
+
+    # the bf16 entry must run its products on the tensor cores
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", info["path"]], capture_output=True, text=True,
+                          timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed: {sass.stderr.strip()[:500]}")
+    hmma = {}
+    for part in sass.stdout.split("Function : ")[1:]:
+        fname = part.split(None, 1)[0]
+        if "flash_attn_bf16_kernel" in fname:
+            hmma[fname] = sum(line.count("HMMA") + line.count("HGMMA") for line in part.splitlines())
+    log(f"flash_attn_bf16 SASS tensor-core instructions (HMMA/HGMMA) per instance: {hmma}")
+    if not hmma or min(hmma.values()) == 0:
+        fail(f"flash_attn_bf16's SASS holds no HMMA/HGMMA: {hmma}")
+    record["flash_attn_bf16_sass_hmma"] = hmma
+
+    def attn_flops(B, T, H, hd):  # 2 products of 2 hd flops per (query, key) pair under the mask
+        return 4 * hd * B * H * T * (T + 1) // 2
+
+    def attn_bytes(B, T, H, KV, hd, itemsize):  # q, k, v read once, o written once
+        return (2 * B * T * H * hd + 2 * B * T * KV * hd) * itemsize
 
     def bound_of(nbytes, ops, peak_ops):
         t_bytes, t_ops = nbytes / bw_peak * 1e3, ops / peak_ops * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
+    def sdpa_call(q, k, v):
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    B, T, H, KV, hd = 8, 512, 16, 8, 128  # the full-size trainer's attention shape
+    attn_ops = attn_flops(B, T, H, hd)
+    for key, dtype in (("flash_attn", t32), ("flash_attn_bf16", t16)):
+        q, k, v = attn_inputs(B, T, T, H, KV, hd, dtype, 10)
+        times[key] = (timed(lambda: flash_attention(q, k, v), 10),
+                      timed(lambda: flash_attention_ref(q, k, v), 3, 3))
+        sdpa = sdpa_call(q, k, v)
+        check_rows(f"scaled_dot_product_attention yardstick ({dtype})", sdpa().transpose(1, 2),
+                   flash_attention(q, k, v), 10 * ATTN_BF16_ROW)
+        library[key] = timed(sdpa, 10)
+        del q, k, v, sdpa
+    torch.cuda.empty_cache()
+    # bf16 at a long sequence, where the operations bound the work
+    BL, TL = 1, 4096
+    q, k, v = attn_inputs(BL, TL, TL, H, KV, hd, t16, 11)
+    long_flops = attn_flops(BL, TL, H, hd)
+    long_bound = bound_of(attn_bytes(BL, TL, H, KV, hd, 2), long_flops, bf16_peak)
+    long_attn = {"shape": [BL, TL, H, KV, hd], "flops": long_flops,
+                 "ms": timed(lambda: flash_attention(q, k, v), 10),
+                 "plain_ms": timed(lambda: flash_attention_ref(q, k, v), 3, 3),
+                 "library_ms": timed(sdpa_call(q, k, v), 10),
+                 "bound_ms": long_bound[0], "bound_by": long_bound[1]}
+    del q, k, v
+    torch.cuda.empty_cache()
+    record["flash_attn_bf16_long"] = long_attn
+
     adam_ops = 17 * n_emb  # per element: 5 mul, 4 add/sub, 3 div, 1 sqrt, and the lr step
     bounds["fused_adam"] = bound_of(28 * n_emb, adam_ops, f32_peak)
     bounds["fused_adam_bf16"] = bound_of(22 * n_emb, adam_ops, f32_peak)
-    attn_bytes = (2 * B * T * H * hd + 2 * B * T * KV * hd)
-    bounds["flash_attn"] = bound_of(4 * attn_bytes, 4 * hd * attn_pairs, f32_peak)
-    bounds["flash_attn_bf16"] = bound_of(2 * attn_bytes, 4 * hd * attn_pairs, bf16_peak)
+    bounds["flash_attn"] = bound_of(attn_bytes(B, T, H, KV, hd, 4), attn_ops, f32_peak)
+    bounds["flash_attn_bf16"] = bound_of(attn_bytes(B, T, H, KV, hd, 2), attn_ops, bf16_peak)
     for kname in ("fused_adam", "fused_adam_bf16", "flash_attn", "flash_attn_bf16"):
         log(f"{kname}: {times[kname][0]:.4f} ms (bound {bounds[kname][0]:.4f} ms, "
             f"{bounds[kname][1]}), plain {times[kname][1]:.3f} ms, "
             f"library {library.get(kname, float('nan')):.4f} ms")
+    for kname in ("flash_attn", "flash_attn_bf16"):
+        log(f"{kname} (8, 512, 16, 8, 128) causal: {times[kname][0]:.4f} ms = "
+            f"{attn_ops / times[kname][0] / 1e9:.1f} TFLOP/s; scaled_dot_product_attention "
+            f"{library[kname]:.4f} ms = {attn_ops / library[kname] / 1e9:.1f} TFLOP/s")
+    log(f"flash_attn_bf16 (1, 4096, 16, 8, 128) causal: {long_attn['ms']:.4f} ms = "
+        f"{long_flops / long_attn['ms'] / 1e9:.1f} TFLOP/s (bound {long_attn['bound_ms']:.4f} ms, "
+        f"{long_attn['bound_by']}), plain {long_attn['plain_ms']:.3f} ms, scaled_dot_product_attention "
+        f"{long_attn['library_ms']:.4f} ms = {long_flops / long_attn['library_ms'] / 1e9:.1f} TFLOP/s")
     log(f"torch.optim.AdamW(fused=True) at the embedding's size: f32 {adam_torch['fused_adam']:.4f} "
         f"ms, bf16 parameters and moments {adam_torch['fused_adam_bf16']:.4f} ms")
 

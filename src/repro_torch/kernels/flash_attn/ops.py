@@ -21,10 +21,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
 
     Keeps the JAX wrapper's contract: Tq and Tk must be divisible by the
     tiles (default 128, shrunk to the sequence length for short inputs),
-    else ValueError. The CUDA kernel tiles by 64 queries and 32 keys on its
-    own and masks ragged edges, so the tiles only shape that check. f32 or
-    bf16, hd <= 128 on the card. On CPU tensors this runs the plain
-    version; on CUDA tensors it launches the kernel or raises.
+    else ValueError. The CUDA kernel tiles by 128 queries and 64 keys on
+    its own and masks ragged edges, so the tiles only shape that check. f32
+    or bf16 (on the tensor cores), any hd <= 128 on the card. On CPU
+    tensors this runs the plain version; on CUDA tensors it launches the
+    kernel or raises.
     ``flash_attention.launches`` counts kernel launches.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:

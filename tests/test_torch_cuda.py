@@ -247,7 +247,10 @@ def test_fused_adam_matches_plain(cuda):
 
 def test_flash_attention_matches_plain(cuda):
     cases = [((2, 256, 4, 2, 64), 256, True), ((1, 96, 8, 2, 128), 96, True),  # 4:1 GQA, ragged
-             ((1, 128, 2, 2, 32), 256, False), ((2, 512, 16, 8, 128), 512, True)]
+             ((1, 128, 2, 2, 32), 256, False), ((2, 512, 16, 8, 128), 512, True),
+             ((1, 128, 8, 2, 128), 256, False),  # full attention, Tk = 2 Tq
+             ((2, 96, 4, 4, 16), 96, True),  # hd 16, padded to 32
+             ((1, 96, 4, 1, 20), 96, True)]  # hd 20: 40-byte bf16 rows, element copies; 4:1
     for dtype, ((B, T, H, KV, hd), Tk, causal) in [(d, c) for d in (torch.float32, torch.bfloat16)
                                                    for c in cases]:
         q = _randn(B * T * H * hd, 50, cuda).reshape(B, T, H, hd).to(dtype)
@@ -257,6 +260,7 @@ def test_flash_attention_matches_plain(cuda):
         got = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         assert flash_attention.launches == before + 1 and got.dtype == dtype
+        assert torch.equal(got, flash_attention(q, k, v, causal=causal))  # no atomics: same bits
         want = flash_attention_ref(q, k, v, causal).double()
         if dtype == torch.float32:
             torch.testing.assert_close(got.double(), want, rtol=2e-5, atol=2e-5)

@@ -25,8 +25,14 @@ def _tol(dtype):
 
 
 def _pair(shape, dtype, seed):
+    """The same draws as a torch tensor and a JAX array that share no memory.
+
+    On the CPU ``jnp.asarray`` may alias a 64-byte-aligned numpy buffer, and
+    ``torch.from_numpy(a).to(torch.float32)`` is ``a`` itself: ``fused_adamw``
+    writes p in place while JAX's asynchronous dispatch may still be reading
+    it, so the torch side gets its own copy."""
     a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
-    return torch.from_numpy(a).to(dtype), jnp.asarray(a).astype(JDT[dtype])
+    return torch.tensor(a).to(dtype), jnp.asarray(a).astype(JDT[dtype])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
