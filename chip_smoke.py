@@ -57,6 +57,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    completes (the f32 residual may reach its floor and stop a run early),
    and the marginal ms per iteration of that count's second half; then
    ms per solve to rtol 1e-3 on each path, median of 5.
+6. the serving tier at full width, after 4b and before 5, on the
+   poisson125(128) DIA operator and Queen_4147's Bell form built above:
+   (a) the four lane-batched entries (fused_iter at poisson125, spmv_dia
+   at poisson125, fused_vma at Queen's length, spmv_bell at Queen) at
+   k = 1, 3 and 8 against their plain versions and, lane by lane, against
+   the single-rhs kernel, with one inactive lane checked bit for bit
+   untouched (an SPMV gives it 0); the script prints whether every active
+   lane equals the single kernel bit for bit; times at k = 8 beside the
+   plain versions, cuSPARSE's SpMM (torch.sparse CSR @ dense, a yardstick
+   the port never calls) and the bytes bound; (b) ``plan.solve_batched``
+   at a fixed 200 iterations (atol = rtol = 0) for k = 1, 2, 4, 8 on both
+   operators (auto -> batched fused_iter; auto -> batched spmv_bell +
+   fused_vma; no single-rhs kernel may launch), ms per batched iteration
+   and per rhs-iteration beside the bound and the single solve; (c) one
+   ``SolverServer`` (max_batch 8, max_wait_ms 5) fed 64 seeded requests
+   per operator (scales over two decades, atol 1e-7 or 1e-6, rtol 1e-3):
+   every answer has plan.solve's iteration count, x within 1e-5 relative
+   and a float64 true residual below 1e-2; requests/s, p50/p99 latency,
+   bucket occupancy, and trace_count 2 per plan; (d) a warm start:
+   ``save_manifest`` with builder recipes (poisson125 n=128; a Bell
+   builder over table1 Queen_4147, registered here), then
+   ``SolverServer.from_manifest`` onto the same pool keys, whose first
+   requests build no runner.
 5. training through the fused optimizer: (a) the launcher
    ``repro_torch.launch.train.main`` at the reduced internlm2-1.8b config
    for 30 steps with checkpoints, then resumed to 40; (b) the full-size
@@ -930,6 +953,381 @@ def main() -> None:
             f"({qruns[label]['iterations']} iterations, {qruns[label]['steps']} steps, "
             f"median of 5)")
 
+    # ------------------------------------------------------------------ 6
+    # the serving tier at full width, on the operators phases 2-4b built
+    import gc
+    import tempfile
+
+    from repro_torch.kernels import (
+        fused_iter_batched,
+        fused_iter_batched_ref,
+        fused_vma_dots_batched,
+        fused_vma_dots_batched_ref,
+        spmv_bell_batched,
+        spmv_bell_batched_ref,
+        spmv_dia_batched,
+        spmv_dia_batched_ref,
+    )
+    from repro_torch.serve import SolverServer, operator_spec, register_operator_builder
+
+    del QC, qcases
+    gc.collect()
+    torch.cuda.empty_cache()
+    BATCHED = {"fused_iter_batched": fused_iter_batched, "spmv_dia_batched": spmv_dia_batched,
+               "fused_vma_batched": fused_vma_dots_batched, "spmv_bell_batched": spmv_bell_batched}
+    counters.update(BATCHED)
+    inv_a = 1.0 / A.diagonal()
+    inv_q = 1.0 / QB.diagonal()
+
+    def lanes_of(k, n, seed, scale=1.0):
+        g_ = torch.Generator(device=dev)
+        g_.manual_seed(seed)
+        return torch.randn(k, n, generator=g_, device=dev) * scale
+
+    def dots_scale(vecs, lane):
+        r_, u_, w_ = vecs[5][lane], vecs[6][lane], vecs[7][lane]
+        return float(torch.stack([(r_ * u_).abs().sum(), (w_ * u_).abs().sum(),
+                                  (u_ * u_).sum()]).max())
+
+    # (a) each batched entry against its plain version and, lane by lane,
+    # against the single-rhs kernel; one inactive lane left bit for bit
+    bits = {kn: True for kn in BATCHED}
+    errs.update({kn: 0.0 for kn in BATCHED})
+    seed = 600
+    for k_l, off in ((1, None), (1, 0), (3, 1), (8, 1)):
+        act = torch.ones(k_l, dtype=torch.bool, device=dev)
+        if off is not None:
+            act[off] = False
+        tag = f"k={k_l} inactive={off}"
+        seed += 10
+        # spmv_dia at poisson125(128), spmv_bell at Queen_4147's Bell form
+        for kn, fn, ref, single, op, refargs in (
+                ("spmv_dia_batched", spmv_dia_batched, spmv_dia_batched_ref, spmv_dia_cuda, A,
+                 (A.data, A.offsets)),
+                ("spmv_bell_batched", spmv_bell_batched, spmv_bell_batched_ref, spmv_bell_cuda, QB,
+                 (QB.cols, QB.vals))):
+            X = lanes_of(k_l, op.n, seed)
+            Y = fn(op, X, act)
+            errs[kn] = max(errs[kn], check(f"{kn} {tag}", Y, ref(*refargs, X, act), **VEC))
+            for lane in range(k_l):
+                if not act[lane]:
+                    if Y[lane].any():
+                        fail(f"{kn} {tag}: inactive lane {lane} is not 0")
+                    continue
+                y1 = single(op, X[lane])
+                check(f"{kn} {tag} lane {lane} vs the single kernel", Y[lane], y1, **VEC)
+                bits[kn] &= bool(torch.equal(Y[lane], y1))
+            del X, Y
+        # fused_vma at Queen_4147's length, fused_iter at poisson125(128)'s
+        alpha = torch.linspace(0.2, 0.4, k_l, device=dev)
+        beta = torch.linspace(0.5, 0.7, k_l, device=dev)
+        vecs = [lanes_of(k_l, QN, seed + 1 + i) for i in range(10)]
+        want = fused_vma_dots_batched_ref(*vecs, inv_q, alpha, beta)
+        lanes_work = [v.clone() for v in vecs]
+        got = fused_vma_dots_batched(*lanes_work, inv_q, alpha, beta, act)
+        for lane in range(k_l):
+            if not act[lane]:
+                if not all(torch.equal(v[lane], v0[lane]) for v, v0 in zip(lanes_work, vecs)):
+                    fail(f"fused_vma_batched {tag}: inactive lane {lane} was touched")
+                continue
+            single = fused_vma_dots(*[v[lane].clone() for v in vecs], inv_q, alpha[lane],
+                                    beta[lane])
+            for g_v, w_v, s_v in zip(got[:9], want[:9], single[:9]):
+                errs["fused_vma_batched"] = max(errs["fused_vma_batched"], check(
+                    f"fused_vma_batched {tag} lane {lane}", g_v[lane], w_v[lane], **VEC))
+                check(f"fused_vma_batched {tag} lane {lane} vs the single kernel", g_v[lane], s_v,
+                      **VEC)
+                bits["fused_vma_batched"] &= bool(torch.equal(g_v[lane], s_v))
+            check_dots(f"fused_vma_batched {tag} lane {lane}", got[9][lane], want[9][lane],
+                       dots_scale(want, lane))
+            bits["fused_vma_batched"] &= bool(torch.equal(got[9][lane], single[9]))
+        del vecs, want, lanes_work, got
+        vecs = [lanes_of(k_l, N, seed + 20 + i) for i in range(9)]
+        want = fused_iter_batched_ref(A.data, A.offsets, *vecs, inv_a, alpha, beta)
+        lanes_work = [v.clone() for v in vecs[:8]]
+        m_out = torch.empty_like(vecs[8])
+        got = fused_iter_batched(A.data, A.offsets, *lanes_work, vecs[8], m_out, inv_a, alpha,
+                                 beta, act)
+        for lane in range(k_l):
+            if not act[lane]:
+                if not (all(torch.equal(v[lane], v0[lane]) for v, v0 in zip(lanes_work, vecs))
+                        and torch.equal(m_out[lane], vecs[8][lane])):
+                    fail(f"fused_iter_batched {tag}: inactive lane {lane} was touched")
+                continue
+            s_out = torch.empty(N, device=dev)
+            single = fused_iter_step(A.data, A.offsets, *[v[lane].clone() for v in vecs[:8]],
+                                     vecs[8][lane], s_out, inv_a, alpha[lane], beta[lane])
+            for g_v, w_v, s_v in zip(got[:9], want[:9], single[:9]):
+                errs["fused_iter_batched"] = max(errs["fused_iter_batched"], check(
+                    f"fused_iter_batched {tag} lane {lane}", g_v[lane], w_v[lane], **VEC))
+                check(f"fused_iter_batched {tag} lane {lane} vs the single kernel", g_v[lane], s_v,
+                      **VEC)
+                bits["fused_iter_batched"] &= bool(torch.equal(g_v[lane], s_v))
+            check_dots(f"fused_iter_batched {tag} lane {lane}", got[9][lane], want[9][lane],
+                       dots_scale(want, lane))
+            bits["fused_iter_batched"] &= bool(torch.equal(got[9][lane], single[9]))
+        del vecs, want, lanes_work, got, m_out
+        sync()
+        log(f"batched kernels agree with their plain versions and the single kernels ({tag})")
+    log(f"batched kernels: each active lane equal bit for bit to the single-rhs kernel: {bits}")
+    record["batched_bits_equal_single"] = bits
+    torch.cuda.empty_cache()
+
+    # times at the serving bucket (k = 8), all lanes active, beside the plain
+    # versions, cuSPARSE's SpMM (torch.sparse CSR @ dense) and the bytes bound
+    KB = 8
+    a8 = torch.full((KB,), 1e-3, device=dev)
+    Xa, Xq = lanes_of(KB, N, 700), lanes_of(KB, QN, 701)
+    vq = [lanes_of(KB, QN, 710 + i, 1e-3) for i in range(10)]
+    times["spmv_dia_batched"] = (timed(lambda: spmv_dia_batched(A, Xa), 10),
+                                 timed(lambda: spmv_dia_batched_ref(A.data, A.offsets, Xa), 2, 3))
+    times["spmv_bell_batched"] = (timed(lambda: spmv_bell_batched(QB, Xq), 10),
+                                  timed(lambda: spmv_bell_batched_ref(QB.cols, QB.vals, Xq), 1, 3))
+    times["fused_vma_batched"] = (timed(lambda: fused_vma_dots_batched(*vq, inv_q, a8, a8), 20),
+                                  timed(lambda: fused_vma_dots_batched_ref(*vq, inv_q, a8, a8),
+                                        2, 3))
+    del vq
+    va = [lanes_of(KB, N, 730 + i, 1e-3) for i in range(9)]
+    m_out = torch.empty_like(va[8])
+    times["fused_iter_batched"] = (
+        timed(lambda: fused_iter_batched(A.data, A.offsets, *va, m_out, inv_a, a8, a8), 10),
+        timed(lambda: fused_iter_batched_ref(A.data, A.offsets, *va, inv_a, a8, a8), 2, 3))
+    del va, m_out
+    offs_t = torch.tensor(A.offsets, device=dev)
+    cols_t = torch.arange(N, device=dev)[:, None] + offs_t[None, :]
+    valid = (cols_t >= 0) & (cols_t < N)
+    crow = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(valid.sum(1), 0)
+    csr_a = torch.sparse_csr_tensor(crow, cols_t[valid], A.data.t()[valid], size=(N, N),
+                                    check_invariants=False)
+    del cols_t, valid, crow
+    # a yardstick, not a kernel of the port: cuSPARSE's SpMM sums each row in
+    # its own order, so it is held at 1e-5 of the largest |y| (f32 reordering
+    # of 125 products moves y by a few 1e-4 here), which a layout error exceeds
+    y_lane = spmv_dia_batched(A, Xa)
+    check("torch.sparse SpMM yardstick (poisson125)", (csr_a @ Xa.mT).mT, y_lane, rtol=1e-5,
+          atol=1e-5 * float(y_lane.abs().max()))
+    del y_lane
+    library["spmv_dia_batched"] = timed(lambda: csr_a @ Xa.mT, 10)
+    del csr_a
+    torch.cuda.empty_cache()
+    keep = QB.vals != 0  # the Bell form's real entries (padding slots hold 0)
+    q_crow = torch.zeros(QN + 1, dtype=torch.int64, device=dev)
+    q_crow[1:] = torch.cumsum(keep.sum(1), 0)
+    csr_q = torch.sparse_csr_tensor(q_crow, QB.cols[keep].to(torch.int64), QB.vals[keep],
+                                    size=(QN, QN), check_invariants=False)
+    del keep, q_crow
+    y_lane = spmv_bell_batched(QB, Xq)
+    check("torch.sparse SpMM yardstick (Queen_4147)", (csr_q @ Xq.mT).mT, y_lane, rtol=1e-5,
+          atol=1e-5 * float(y_lane.abs().max()))
+    del y_lane
+    library["spmv_bell_batched"] = timed(lambda: csr_q @ Xq.mT, 10)
+    del csr_q, Xa, Xq
+    torch.cuda.empty_cache()
+    kd = A.n_diags
+    work.update({
+        "fused_iter_batched": (kd * N * 4 + N * 4 + KB * N * 72 + KB * 21,
+                               KB * (2 * kd * N + 23 * N)),
+        "spmv_dia_batched": (kd * N * 4 + KB * N * 8, KB * 2 * kd * N),
+        "fused_vma_batched": (QN * 4 + KB * QN * 76 + KB * 21, KB * 23 * QN),
+        "spmv_bell_batched": (QN * R * 8 + KB * QN * 8, KB * 2 * QN * R),
+    })
+    for kn in BATCHED:
+        nbytes, ops = work[kn]
+        bounds[kn] = bound_of(nbytes, ops, f32_peak)
+        log(f"{kn} (k={KB}): {times[kn][0]:.4f} ms (bound {bounds[kn][0]:.4f} ms, "
+            f"{bounds[kn][1]}, {100 * bounds[kn][0] / times[kn][0]:.0f}%), plain "
+            f"{times[kn][1]:.3f} ms, library {library.get(kn, float('nan')):.4f} ms")
+
+    # (b) solve_batched at a fixed 200 iterations, k = 1, 2, 4, 8, beside the
+    # single solve; the bound of a batched iteration is its kernels' bounds
+    def iteration_bound(label, k_):
+        if label == "poisson125":
+            return (kd * N * 4 + N * 4 + k_ * N * 72) / bw_peak * 1e3
+        return (QN * R * 8 + k_ * QN * 8 + QN * 4 + k_ * QN * 76) / bw_peak * 1e3
+
+    serve_ops = {"poisson125": (A, b), "Queen_4147 Bell": (QB, qb)}
+    want_path = {"poisson125": ("fused_iter", {"fused_iter_batched", "spmv_dia_batched"}),
+                 "Queen_4147 Bell": ("cuda", {"fused_vma_batched", "spmv_bell_batched"})}
+    batched_ms = {}
+    for label, (op, rhs) in serve_ops.items():
+        p1 = repro_torch.plan(op, method="pipecg", engine="auto", M="jacobi", atol=0.0, rtol=0.0,
+                              maxiter=TIMED_ITERS)
+        r1 = p1.solve(rhs)
+        single_ms = timed(lambda: p1.solve(rhs), 1) / r1.steps
+        rows = {"single": {"ms_per_iteration": single_ms, "iterations": int(r1.iterations),
+                           "bound_ms": iteration_bound(label, 1)}}
+        for k_ in (1, 2, 4, 8):
+            B = torch.stack([(1.0 + 0.25 * lane) * rhs for lane in range(k_)])
+            p = repro_torch.plan(op, method="pipecg", engine="auto", M="jacobi", atol=0.0,
+                                 rtol=0.0, maxiter=TIMED_ITERS)
+            core, kernels_want = want_path[label]
+            if p.describe()["core"] != core:
+                fail(f"{label}: solve_batched resolved to core {p.describe()['core']}")
+            for f in counters.values():
+                f.launches = 0
+            res = p.solve_batched(B)
+            sync()
+            launched = {kn for kn, f in counters.items() if f.launches}
+            if launched != kernels_want:
+                fail(f"{label} k={k_}: solve_batched launched {launched}, not {kernels_want}")
+            ms = timed(lambda: p.solve_batched(B), 1)
+            per_it = ms / res.steps
+            rows[k_] = {"ms_per_iteration": per_it, "ms_per_rhs_iteration": per_it / k_,
+                        "bound_ms": iteration_bound(label, k_),
+                        "bound_per_rhs_ms": iteration_bound(label, k_) / k_,
+                        "steps": res.steps, "lane_iterations": res.iterations.tolist()}
+            log(f"{label} solve_batched k={k_}: {per_it:.4f} ms per batched iteration, "
+                f"{per_it / k_:.4f} ms per rhs-iteration (bound {iteration_bound(label, k_):.4f} / "
+                f"{iteration_bound(label, k_) / k_:.4f}); lanes ran {res.iterations.tolist()} of "
+                f"{res.steps} steps; single solve {single_ms:.4f} ms per iteration")
+            del p, res, B
+            gc.collect()
+        batched_ms[label] = rows
+        del p1
+        gc.collect()
+        torch.cuda.empty_cache()
+    record["solve_batched"] = batched_ms
+
+    # (c) a SolverServer on both operators: 64 seeded requests each, scales
+    # over two decades, atol in two decades (so two pooled plans each),
+    # rtol 1e-3; every answer held against plan.solve of the same rhs
+    A64 = A.with_dtype(torch.float64)
+    Q64 = Q.with_dtype(torch.float64)
+
+    def true_rel_residual(op64, rhs, x):
+        r64 = rhs.double() - spmv(op64, x.double(), engine="torch")
+        return float(r64.norm() / rhs.double().norm())
+
+    SERVE_N, SERVE_ATOLS, SERVE_RTOL = 64, (1e-7, 1e-6), 1e-3
+    srv = SolverServer(max_batch=8, max_wait_ms=5.0, method="pipecg", engine="auto",
+                       M="jacobi", rtol=SERVE_RTOL, maxiter=2000)
+    serving = {}
+    serve_launches = {}
+
+    def serve_operator(label, op, op64, sd):
+        """64 requests through ``srv`` against one operator, each answer held
+        against plan.solve; returns the numbers (its locals free on return)."""
+        rng = np.random.default_rng(sd)
+        scales = 10.0 ** rng.uniform(-1.0, 1.0, SERVE_N)
+        atols = [SERVE_ATOLS[i % 2] for i in range(SERVE_N)]
+        RHS = lanes_of(SERVE_N, op.n, sd) / math.sqrt(op.n) * torch.tensor(
+            scales, dtype=torch.float32, device=dev)[:, None]
+        srv.pool.fingerprint(op)  # hashed once here, outside the timed burst
+        for f in counters.values():
+            f.launches = 0
+        sync()
+        # one lone request per tolerance decade builds each plan's single runner
+        for i in range(2):
+            srv.submit(op, RHS[i], atol=atols[i]).result(timeout=600)
+        submitted, done = {}, {}
+        t0 = time.perf_counter()
+        futs = []
+        for i in range(2, SERVE_N):
+            submitted[i] = time.perf_counter()
+            fut = srv.submit(op, RHS[i], atol=atols[i])
+            fut.add_done_callback(lambda _f, i=i: done.__setitem__(i, time.perf_counter()))
+            futs.append((i, fut))
+        results = {i: fut.result(timeout=600) for i, fut in futs}
+        wall = time.perf_counter() - t0
+        sync()
+        serve_launches[label] = {kn: f.launches for kn, f in counters.items()}
+        lat = sorted(done[i] - submitted[i] for i in results)
+        occ = [r.bucket_occupancy for r in results.values()]
+        # every answer against a direct solve of the same rhs on the card
+        direct = {a: repro_torch.plan(op, method="pipecg", engine="auto", M="jacobi", atol=a,
+                                      rtol=SERVE_RTOL, maxiter=2000) for a in SERVE_ATOLS}
+        worst_x, worst_res, iters = 0.0, 0.0, []
+        for i, r in results.items():
+            ref = direct[atols[i]].solve(RHS[i])
+            if r.iterations != int(ref.iterations) or not r.converged:
+                fail(f"{label} request {i}: {r.iterations} iterations served, "
+                     f"{int(ref.iterations)} by plan.solve (converged={r.converged})")
+            dx = float((r.x - ref.x).norm() / ref.x.norm())
+            tr = true_rel_residual(op64, RHS[i], r.x)
+            if not dx <= 1e-5 or not tr < 1e-2:
+                fail(f"{label} request {i}: x differs by {dx:.3e} from plan.solve's, true "
+                     f"residual {tr:.3e}")
+            worst_x, worst_res = max(worst_x, dx), max(worst_res, tr)
+            iters.append(r.iterations)
+        plans_here = [e.plan for e in srv.entries() if e.plan is not None and e.plan.A is op]
+        tc = sorted(p.trace_count for p in plans_here)
+        if tc != [2] * len(SERVE_ATOLS):
+            fail(f"{label}: trace_count per plan {tc}, expected 2 each (single + bucket of 8)")
+        missing = [kn for kn in want_path[label][1] if not serve_launches[label][kn]]
+        if missing:
+            fail(f"{label}: the served run launched no {missing}")
+        stats = {
+            "requests": SERVE_N, "burst": len(results), "requests_per_s": len(results) / wall,
+            "p50_ms": lat[len(lat) // 2] * 1e3,
+            "p99_ms": lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))] * 1e3,
+            "occupancy_mean": sum(occ) / len(occ), "trace_counts": tc,
+            "iterations_min": min(iters), "iterations_max": max(iters),
+            "max_rel_dx": worst_x, "max_true_residual": worst_res,
+            "launches": serve_launches[label],
+        }
+        log(f"{label} server: {stats['burst']} burst requests in {wall:.3f} s = "
+            f"{stats['requests_per_s']:.1f} requests/s, latency p50 {stats['p50_ms']:.2f} ms "
+            f"p99 {stats['p99_ms']:.2f} ms, bucket occupancy {stats['occupancy_mean']:.3f}, "
+            f"iterations {min(iters)}-{max(iters)}, trace_count per plan {tc}; every answer = "
+            f"plan.solve's iterations, max |dx|/|x| {worst_x:.2e}, max true residual "
+            f"{worst_res:.2e}; launches {serve_launches[label]}")
+        return stats
+
+    for label, op, op64, sd in (("poisson125", A, A64, 800), ("Queen_4147 Bell", QB, Q64, 900)):
+        serving[label] = serve_operator(label, op, op64, sd)
+    srv.shutdown(drain=True)
+    del A64, Q64, op, op64, serve_ops
+    record["serving"] = serving
+
+    # (d) a warm start: the server's plans into a manifest of builder recipes
+    # (poisson125 n=128; a Bell builder over table1 Queen_4147), then a new
+    # server from it, whose first requests must build no runner
+    def bell_table1(name, scale=1.0, *, device=None):
+        return bell_from_csr(csr_from_dia(table1_matrix(name, scale=scale, device=device)),
+                             device=device)
+
+    register_operator_builder("bell_table1", bell_table1, overwrite=True)
+    specs = {srv.pool.fingerprint(A): operator_spec(A, "poisson125", n=128),
+             srv.pool.fingerprint(QB): operator_spec(QB, "bell_table1", name="Queen_4147")}
+    keys_before = sorted(e.key for e in srv.entries())
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as mdir:
+        mpath = os.path.join(mdir, "plans.json")
+        t0 = time.perf_counter()
+        srv.save_manifest(mpath, operator_specs=specs)
+        t_save = time.perf_counter() - t0
+        del srv
+        gc.collect()
+        t0 = time.perf_counter()
+        srv2 = SolverServer.from_manifest(mpath, device=dev)
+        t_load = time.perf_counter() - t0
+    keys_after = sorted(e.key for e in srv2.entries())
+    if keys_after != keys_before:
+        fail(f"warm start: pool keys {keys_after} != the saved server's {keys_before}")
+    boot = {id(p): p.trace_count for p in srv2.plans()}
+    if sorted(boot.values()) != [2] * len(keys_before):
+        fail(f"warm start built {sorted(boot.values())} runners per plan, expected 2 each")
+    for p in srv2.plans():
+        rhs = lanes_of(1, p.n, 950)[0] / math.sqrt(p.n)
+        cfg = p.config()
+        srv2.submit(p.A, rhs, **cfg).result(timeout=600)
+        for f in srv2.submit_many(p.A, [c * rhs for c in (2.0, 3.0, 5.0, 7.0)], **cfg):
+            if not f.result(timeout=600).converged:
+                fail("a request after the warm start did not converge")
+    added = {str(p.describe()["operator"]) + f" atol={p.atol}": p.trace_count - boot[id(p)]
+             for p in srv2.plans()}
+    srv2.shutdown(drain=True)
+    if any(added.values()):
+        fail(f"requests after the warm start built runners: {added}")
+    record["warm_start"] = {"save_s": t_save, "load_and_warm_s": t_load,
+                            "plans": len(keys_after), "runners_added": added}
+    log(f"warm start: manifest of {len(keys_before)} plans saved in {t_save:.1f} s, rebuilt and "
+        f"warmed in {t_load:.1f} s onto the same pool keys; first requests added runners {added}")
+    del srv2
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------------ 5
     import contextlib
     import gc
@@ -950,7 +1348,7 @@ def main() -> None:
         warmup_cosine,
     )
 
-    del A, A27, Q, QB, QC, b
+    del A, A27, Q, QB, b, qb, inv_a, inv_q
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1192,13 +1590,22 @@ def main() -> None:
              "fused_adam_bf16": ("full internlm2-1.8b trainer, 20 steps (5b)",
                                  {"launches": {"fused_adam": launches_5b}}),
              "flash_attn": (None, None),
-             "flash_attn_bf16": (None, None)}
+             "flash_attn_bf16": (None, None),
+             "fused_iter_batched": ("poisson125 server, 64 requests (6c)",
+                                    {"launches": serve_launches["poisson125"]}),
+             "spmv_dia_batched": ("poisson125 server, 64 requests (6c)",
+                                  {"launches": serve_launches["poisson125"]}),
+             "fused_vma_batched": ("Queen_4147 Bell server, 64 requests (6c)",
+                                   {"launches": serve_launches["Queen_4147 Bell"]}),
+             "spmv_bell_batched": ("Queen_4147 Bell server, 64 requests (6c)",
+                                   {"launches": serve_launches["Queen_4147 Bell"]})}
     kernels = []
     for kname, (path, run) in paths.items():
-        base = kname.removesuffix("_bf16")
+        base = kname.removesuffix("_bf16").removesuffix("_batched")
+        counted = kname if kname in BATCHED else base
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[base], "replaces": REPLACES[base],
-            "path": path, "launches": 0 if run is None else run["launches"][base],
+            "path": path, "launches": 0 if run is None else run["launches"][counted],
             "max_abs_err": errs[kname], "ms": times[kname][0], "plain_ms": times[kname][1],
             "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
             "library_ms": library.get(kname),

@@ -12,9 +12,12 @@ CUDA kernels. Its LM substrate trains the dense decoder family
 The JAX package ``repro`` stays the reference; this package imports
 nothing of it, nor JAX.
 
-Entry points: ``repro_torch.plan(A, ...)`` -> reusable ``SolverPlan``,
-and the one-shot ``repro_torch.solve(A, b, ...)`` over a keyed plan
-cache. Operators: ``repro_torch.sparse.poisson7/27/125(n, device=...)``,
+Entry points: ``repro_torch.plan(A, ...)`` -> reusable ``SolverPlan``
+(``solve(b)``, and ``solve_batched(B)`` for k right-hand sides through
+the kernels' lane-batched entries), the one-shot ``repro_torch.solve(A,
+b, ...)`` over a keyed plan cache, and the serving tier
+``repro_torch.serve`` (``SolverServer``: queue, plan-pool router,
+warm-start manifests), with its telemetry in ``repro_torch.obs``. Operators: ``repro_torch.sparse.poisson7/27/125(n, device=...)``,
 ``table1_matrix(name, device=...)`` and the converters
 ``csr_from_dia``/``bell_from_csr``/``csr_device_from_host``.
 Everything runs on CUDA unless the caller asks for the CPU.

@@ -8,13 +8,14 @@ iteration — no overlap slack.
 
 Written as ``run_pipecg`` is (device scalars, one host poll per
 ``POLL_EVERY`` steps); the SPMV goes through ``spmv(A, ·)`` ("auto").
+A ``(k, n)`` rhs runs the same loop over lanes, as ``pcg`` does.
 """
 from __future__ import annotations
 
 import torch
 
 from ..sparse.spmv import spmv
-from .iteration import Convergence, dot_f32, solve_inputs
+from .iteration import Convergence, dot_f32, hold, lane, solve_inputs
 from .preconditioners import apply_pc
 from .types import SolveResult
 
@@ -30,20 +31,22 @@ def _cg_cg_impl(A, b, M, x0, atol: float, rtol: float, maxiter: int) -> SolveRes
     delta = dot_f32(w, u)
     conv = Convergence(torch.sqrt(dot_f32(u, u)), atol, rtol, maxiter)
     alpha = (gamma / delta).to(dtype)
-    beta = torch.zeros((), dtype=dtype, device=b.device)
+    beta = torch.zeros_like(alpha)
     p = torch.zeros_like(b)
     s = torch.zeros_like(b)
-    x = x0
+    x = x0.clone()  # the result never aliases the caller's x0
 
     for k in range(maxiter):
         if conv.poll(k):
             break
-        p = u + beta * p
-        s = w + beta * s
-        x = torch.where(conv.active, x + alpha * p, x)
-        r = r - alpha * s
+        act = conv.active
+        a, bt = lane(alpha, b), lane(beta, b)
+        p = hold(act, u + bt * p, p)
+        s = hold(act, w + bt * s, s)
+        x = torch.where(lane(act, b), x + a * p, x)
+        r = hold(act, r - a * s, r)
         u = apply_pc(M, r)
-        w = spmv(A, u, active=conv.active)
+        w = spmv(A, u, active=act)
         # single synchronization: the three dots reduce together
         gamma_new = dot_f32(r, u)
         delta = dot_f32(w, u)

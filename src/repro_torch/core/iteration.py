@@ -33,6 +33,15 @@ no-ops on the device (the kernels, ``spmv_bell`` among them, return
 early; the plain core keeps x),
 so iteration counts, x, the residual norm and the NaN-tailed history are
 exactly those of a loop that stops at convergence.
+
+Lane-batched solves (``SolverPlan.solve_batched``, the JAX package's
+``jax.vmap`` of the loop) run the same loop over ``(k, n)`` vectors:
+every scalar, the counter and ``active`` become ``(k,)`` device tensors,
+the history ``(k, maxiter+1)``, and the host polls ``active.any()``. A
+lane freezes when it converges, as vmap's per-lane select does: the
+kernels leave an inactive lane's vectors untouched and the plain core
+keeps every vector of it, so a lane that starts inactive (a zero rhs,
+the server's padding) never lets its 0/0 scalars reach a vector.
 """
 from __future__ import annotations
 
@@ -49,6 +58,8 @@ __all__ = [
     "Convergence",
     "solve_inputs",
     "dot_f32",
+    "lane",
+    "hold",
     "pipecg_vma_core",
     "torch_core",
     "vma_core_cuda",
@@ -64,9 +75,27 @@ POLL_EVERY = 16  # host polls for convergence once per this many steps
 
 
 def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Dot product accumulated in at-least-float32 (float64 stays float64)."""
+    """Dot product accumulated in at-least-float32 (float64 stays float64):
+    a 0-d tensor for vectors, (k,) for (k, n) lanes. Each lane is reduced
+    as one vector is, so a batched solve's scalars equal each lane's single
+    solve bit for bit: on the card a (k, n) row sum adds its terms in
+    another order than a 1-D sum."""
     acc = torch.promote_types(a.dtype, torch.float32)
+    if a.dim() == 2:
+        return torch.stack([torch.sum(a_.to(acc) * b_.to(acc)) for a_, b_ in zip(a, b)])
     return torch.sum(a.to(acc) * b.to(acc))
+
+
+def lane(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Per-lane scalars shaped to scale ``v``: (k,) -> (k, 1) when v is
+    (k, n); a 0-d scalar of a single solve is returned as it is."""
+    return s[:, None] if v.dim() == 2 else s
+
+
+def hold(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """A batched loop's vector update: every inactive lane keeps ``old``
+    (vmap's per-lane select). A single solve takes ``new`` as it is."""
+    return torch.where(active[:, None], new, old) if new.dim() == 2 else new
 
 
 def pipecg_vma_core(z, q, s, p, x, r, u, w, n, m, inv_diag, alpha, beta):
@@ -90,13 +119,19 @@ def pipecg_vma_core(z, q, s, p, x, r, u, w, n, m, inv_diag, alpha, beta):
 
 def torch_core(z, q, s, p, x, r, u, w, n, m, inv_diag, alpha, beta, active=None):
     """The plain core for the loop: the recurrence, with x kept where the
-    0-d bool tensor ``active`` is False."""
-    z, q, s, p, x_new, r, u, w, m, dots = pipecg_vma_core(
-        z, q, s, p, x, r, u, w, n, m, inv_diag, alpha, beta
-    )
+    0-d bool tensor ``active`` is False.
+
+    Batched, on (k, n) vectors with (k,) alpha, beta and ``active``: an
+    inactive lane keeps every vector (vmap's per-lane select)."""
+    old = (z, q, s, p, x, r, u, w, m)
+    *new, dots = pipecg_vma_core(z, q, s, p, x, r, u, w, n, m, inv_diag, lane(alpha, z),
+                                 lane(beta, z))
     if active is not None:
-        x_new = torch.where(active, x_new, x)
-    return z, q, s, p, x_new, r, u, w, m, dots
+        if z.dim() == 2:
+            new = [hold(active, v, o) for v, o in zip(new, old)]
+        else:
+            new[4] = torch.where(active, new[4], x)
+    return (*new, dots)
 
 
 def vma_core_cuda(z, q, s, p, x, r, u, w, n, m, inv_diag, alpha, beta, active=None):
@@ -104,13 +139,16 @@ def vma_core_cuda(z, q, s, p, x, r, u, w, n, m, inv_diag, alpha, beta, active=No
 
     ``inv_diag=None`` (a preconditioner the loop applies itself) runs the
     kernel with a unit diagonal, as the JAX package's Pallas core does;
-    the loop then replaces m by ``pc_fn(w)``.
+    the loop then replaces m by ``pc_fn(w)``. (k, n) vectors go through
+    the kernel's lane-batched entry.
     """
-    from ..kernels.fused_vma import fused_vma_dots
+    from ..kernels.fused_vma import fused_vma_dots, fused_vma_dots_batched
 
-    inv = inv_diag if inv_diag is not None else torch.ones_like(w)
-    *vecs, dots = fused_vma_dots(z, q, s, p, x, r, u, w, n, m, inv, alpha, beta, active)
-    return (*vecs, (dots[0], dots[1], dots[2]))
+    inv = inv_diag if inv_diag is not None else torch.ones(w.shape[-1], dtype=w.dtype,
+                                                           device=w.device)
+    fused = fused_vma_dots_batched if w.dim() == 2 else fused_vma_dots
+    *vecs, dots = fused(z, q, s, p, x, r, u, w, n, m, inv, alpha, beta, active)
+    return (*vecs, dots.unbind(-1))
 
 
 def make_fused_iter_core(A) -> Callable:
@@ -122,12 +160,13 @@ def make_fused_iter_core(A) -> Callable:
     on the core here — build once per plan, not per solve. The core is
     called with the current m and a second buffer that receives the new
     m, and returns the updated vectors. ``inv_diag`` is required (the
-    identity PC is a unit diagonal).
+    identity PC is a unit diagonal). (k, n_pad) vectors go through the
+    kernel's lane-batched entry, which reads the band once for 8 lanes.
 
     Attributes: ``fuses_spmv=True``, ``n_pad``, ``padded_data``, ``offsets``.
     """
     from ..kernels.common import BLOCK, ceil_to
-    from ..kernels.fused_iter import fused_iter_step
+    from ..kernels.fused_iter import fused_iter_batched, fused_iter_step
     from ..sparse.formats import DIAMatrix
 
     if not isinstance(A, DIAMatrix):
@@ -140,10 +179,11 @@ def make_fused_iter_core(A) -> Callable:
     offsets = A.offsets
 
     def core(z, q, s, p, x, r, u, w, m, m_out, inv_diag, alpha, beta, active=None):
-        *vecs, dots = fused_iter_step(
+        step = fused_iter_batched if z.dim() == 2 else fused_iter_step
+        *vecs, dots = step(
             dp, offsets, z, q, s, p, x, r, u, w, m, m_out, inv_diag, alpha, beta, active
         )
-        return (*vecs, (dots[0], dots[1], dots[2]))
+        return (*vecs, dots.unbind(-1))
 
     core.fuses_spmv = True
     core.n_pad = n_pad
@@ -225,6 +265,8 @@ class Convergence:
     ``active`` flag, all on the device. :meth:`poll` is the one host sync,
     once per ``POLL_EVERY`` steps; :meth:`record` books step k without a
     sync, so a step after convergence changes nothing that is returned.
+    For a batch ``norm0`` is (k,): every field gains the lane axis (the
+    history is (k, maxiter+1)) and the loop runs while any lane is active.
     """
 
     def __init__(self, norm0: torch.Tensor, atol: float, rtol: float, maxiter: int):
@@ -233,21 +275,23 @@ class Convergence:
             torch.tensor(atol, dtype=norm0.dtype, device=dev),
             torch.tensor(rtol, dtype=norm0.dtype, device=dev) * norm0,
         )
-        self.history = torch.full((maxiter + 1,), math.nan, dtype=torch.float32, device=dev)
-        self.history[0] = norm0.to(torch.float32)
+        self.history = torch.full((*norm0.shape, maxiter + 1), math.nan, dtype=torch.float32,
+                                  device=dev)
+        self.history[..., 0] = norm0.to(torch.float32)
         self._nan = torch.tensor(math.nan, dtype=torch.float32, device=dev)
         self.norm = norm0
-        self.iterations = torch.zeros((), dtype=torch.int32, device=dev)
+        self.iterations = torch.zeros(norm0.shape, dtype=torch.int32, device=dev)
         self.active = norm0 > self.thresh
         self.steps = 0
 
     def poll(self, k: int) -> bool:
         """True when the loop may stop before step k (syncs every POLL_EVERY steps)."""
-        return k % POLL_EVERY == 0 and not bool(self.active)
+        return k % POLL_EVERY == 0 and not bool(self.active.any())
 
     def record(self, k: int, norm_new: torch.Tensor) -> None:
         """Book step k's norm if the solve was still active, then update the flag."""
-        self.history[k + 1] = torch.where(self.active, norm_new.to(torch.float32), self._nan)
+        self.history[..., k + 1] = torch.where(self.active, norm_new.to(torch.float32),
+                                               self._nan)
         self.norm = torch.where(self.active, norm_new, self.norm)
         self.iterations = self.iterations + self.active
         self.active = self.active & (norm_new > self.thresh)

@@ -11,13 +11,17 @@ Written as ``run_pipecg`` is: every scalar is a 0-d device tensor, the
 on the card it is the format's CUDA kernel (``spmv_bell``, ``spmv_dia``);
 the loop hands it the ``active`` flag, so ``spmv_bell`` skips its work
 in the steps between convergence and the poll.
+
+A ``(k, n)`` rhs runs the same loop over lanes (the JAX package's
+``jax.vmap``): (k,) scalars, the kernels' lane-batched SPMV, and an
+inactive lane keeps p, r and x (vmap's per-lane select).
 """
 from __future__ import annotations
 
 import torch
 
 from ..sparse.spmv import spmv
-from .iteration import Convergence, dot_f32, solve_inputs
+from .iteration import Convergence, dot_f32, hold, lane, solve_inputs
 from .preconditioners import apply_pc
 from .types import SolveResult
 
@@ -32,18 +36,19 @@ def _pcg_impl(A, b, M, x0, atol: float, rtol: float, maxiter: int) -> SolveResul
     conv = Convergence(torch.sqrt(dot_f32(u, u)), atol, rtol, maxiter)
     gamma_prev = torch.ones_like(gamma)
     p = torch.zeros_like(b)
-    x = x0
+    x = x0.clone()  # the result never aliases the caller's x0
 
     for k in range(maxiter):
         if conv.poll(k):
             break
-        beta = (gamma / gamma_prev if k > 0 else torch.zeros_like(gamma)).to(dtype)
-        p = u + beta * p
-        s = spmv(A, p, active=conv.active)
+        act = conv.active
+        beta = lane((gamma / gamma_prev if k > 0 else torch.zeros_like(gamma)).to(dtype), b)
+        p = hold(act, u + beta * p, p)
+        s = spmv(A, p, active=act)
         delta = dot_f32(s, p)  # reduction 1
-        alpha = (gamma / delta).to(dtype)
-        x = torch.where(conv.active, x + alpha * p, x)
-        r = r - alpha * s
+        alpha = lane((gamma / delta).to(dtype), b)
+        x = torch.where(lane(act, b), x + alpha * p, x)
+        r = hold(act, r - alpha * s, r)
         u = apply_pc(M, r)
         gamma_new = dot_f32(u, r)  # reduction 2
         conv.record(k, torch.sqrt(dot_f32(u, u)))  # reduction 3

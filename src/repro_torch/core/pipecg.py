@@ -16,6 +16,10 @@ What it does own is the choice of execution path for the kernel cores
 * any other operator (Bell, CSR, dense, matrix-free) or preconditioner
   runs unpadded: ``fused_vma`` takes any length, and the SPMV is the
   operator's own engine (``spmv_bell`` on the card for a Bell operator).
+
+``b`` (and ``x0``) may be ``(k, n)``: the same paths run over lanes (the
+JAX package's ``jax.vmap`` of the solve), through the kernels'
+lane-batched entries on the card; padding is along the last axis.
 """
 from __future__ import annotations
 
@@ -54,12 +58,12 @@ def _padded_spmv_fns(Ap: DIAMatrix, spmv_engine: str):
     always full precision: under the "bf16" engine it is the f32 safety
     net that residual replacement re-derives vectors through.
     """
-    from ..kernels.spmv_dia import spmv_dia_cuda
+    from ..kernels.spmv_dia import spmv_dia_batched, spmv_dia_cuda
 
     eng = resolve_engine(Ap, spmv_engine)
 
     def _cuda(v, active=None):
-        return spmv_dia_cuda(Ap, v)
+        return spmv_dia_batched(Ap, v, active) if v.dim() == 2 else spmv_dia_cuda(Ap, v)
 
     def _plain(v, active=None):
         return spmv_dia(Ap, v)
@@ -89,6 +93,7 @@ def _pipecg_impl(A, b, M, x0, atol, rtol, maxiter, core_name, spmv_engine, repla
     # Jacobi fuses into the iteration core; any other PC is applied per
     # iteration by the loop (inv_diag=None -> m = pc_fn(w))
     inv_diag = M.inv_diag if isinstance(M, JacobiPC) else None
+    n_cols = b.shape[-1]
     replace_spmv_fn = (lambda v: spmv(A, v, engine="auto")) if spmv_engine == "bf16" else None
     kernel_core = core_name in _KERNEL_CORES
 
@@ -97,10 +102,10 @@ def _pipecg_impl(A, b, M, x0, atol, rtol, maxiter, core_name, spmv_engine, repla
         if kernel_core and isinstance(M, IdentityPC):
             # the kernel fuses identity as a unit diagonal, so every vector
             # the loop builds is a buffer of its own
-            M = JacobiPC(inv_diag=torch.ones_like(b))
+            M = JacobiPC(inv_diag=torch.ones(n_cols, dtype=b.dtype, device=b.device))
             inv_diag = M.inv_diag
         elif kernel_core and inv_diag is None:
-            core = _with_unit_diag(core, torch.ones_like(b))
+            core = _with_unit_diag(core, torch.ones(n_cols, dtype=b.dtype, device=b.device))
         i, x, norm, converged, hist, steps = run_pipecg(
             b,
             x0,
@@ -149,7 +154,7 @@ def _pipecg_impl(A, b, M, x0, atol, rtol, maxiter, core_name, spmv_engine, repla
         replace_every=replace_every,
         replace_spmv_fn=replace_fn,
     )
-    return SolveResult(x=x[:n], iterations=i, residual_norm=norm, converged=converged,
+    return SolveResult(x=x[..., :n], iterations=i, residual_norm=norm, converged=converged,
                        history=hist, steps=steps)
 
 
@@ -231,7 +236,8 @@ def pipecg(
                           spmv_engine="bf16".
     core                — a prebuilt core from :func:`pin_pipecg_core`.
 
-    ``b`` (and ``x0``) must be on the operator's device.
+    ``b`` (and ``x0``) must be on the operator's device; ``(k, n)`` solves
+    k right-hand sides at once, every result field gaining the lane axis.
     """
     M, x0 = solve_inputs(A, b, M, x0)
     core_name, spmv_engine, replace_every = _resolve_config(A, M, engine, spmv_engine,

@@ -82,5 +82,8 @@ def apply_pc(M, r: torch.Tensor) -> torch.Tensor:
         return r
     if isinstance(M, BlockJacobiPC):
         nb = M.inv_blocks.shape[0]
-        return torch.einsum("bij,bj->bi", M.inv_blocks, r.reshape(nb, M.block)).reshape(-1)
+        if r.dim() == 1:
+            return torch.einsum("bij,bj->bi", M.inv_blocks, r.reshape(nb, M.block)).reshape(-1)
+        lanes = r.reshape(r.shape[0], nb, M.block)  # (k, n): one product for every lane
+        return torch.einsum("bij,lbj->lbi", M.inv_blocks, lanes).reshape(r.shape)
     raise TypeError(f"unsupported preconditioner {type(M).__name__}")

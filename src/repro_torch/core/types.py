@@ -15,6 +15,9 @@ class SolveResult:
     NaN past convergence. Shape (maxiter+1,). ``steps`` is the number
     of host loop steps taken: the iterations plus the no-op steps that
     ran on the device between convergence and the next convergence poll.
+    A batched solve of k right-hand sides gives every tensor field a
+    leading lane axis: x (k, n), iterations/residual_norm/converged (k,),
+    history (k, maxiter+1); ``steps`` is shared by the lanes.
     """
 
     x: torch.Tensor

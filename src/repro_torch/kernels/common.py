@@ -9,7 +9,14 @@ hash of the sources and flags. Each ``csrc/*.cu`` is compiled to an
 object in its own ``nvcc`` process, all started together, then linked.
 
 The JAX package's jaxpr census has no counterpart here: each kernel
-wrapper keeps a plain integer ``launches`` counter instead.
+wrapper keeps a plain integer ``launches`` counter instead, raised under
+a lock (the serving tier launches from several threads). The first
+build is behind a lock too, so concurrent first calls build and load the
+library once.
+
+The lane-batched entries (``*_batched``: the JAX package's kernels under
+``jax.vmap``) take ``(k, n)`` row-major vectors, ``(k,)`` float32 alpha
+and beta and a ``(k,)`` bool ``active``.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -36,10 +44,16 @@ __all__ = [
     "check_distinct",
     "device_scalar",
     "check_active",
+    "LANE_CHUNK",
+    "count_launch",
+    "check_lanes",
+    "lane_scalars",
+    "check_lane_active",
 ]
 
 BLOCK = 256       # threads per block of every kernel (csrc/common.cuh: REPRO_BLOCK)
 MAX_DIAGS = 256   # diagonals a DIA kernel takes by value (csrc/common.cuh: REPRO_MAX_DIAGS)
+LANE_CHUNK = 8    # lanes a register-tiled batched launch takes (csrc/common.cuh: REPRO_MAX_LANES)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -50,6 +64,8 @@ NVCC_FLAGS = (
 
 _LIB: ctypes.CDLL | None = None
 _BUILD_INFO: dict = {}
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def ceil_to(x: int, m: int) -> int:
@@ -57,8 +73,8 @@ def ceil_to(x: int, m: int) -> int:
 
 
 def pad1d(x: torch.Tensor, n_pad: int) -> torch.Tensor:
-    """Zero-pad a 1-D tensor to length n_pad (the same tensor if no pad)."""
-    n = x.shape[0]
+    """Zero-pad the last axis to length n_pad (the same tensor if no pad)."""
+    n = x.shape[-1]
     if n == n_pad:
         return x
     return torch.nn.functional.pad(x, (0, n_pad - n))
@@ -84,15 +100,7 @@ def stream_ptr(device: torch.device) -> int:
 
 def check_vectors(names, vecs, *, length: int, device: torch.device) -> None:
     """Every vector a kernel takes: 1-D float32, contiguous, on ``device``."""
-    for name, v in zip(names, vecs):
-        if v.device != device:
-            raise ValueError(f"{name} is on {v.device}, expected {device}")
-        if v.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 for the CUDA kernel, got {v.dtype}")
-        if v.dim() != 1 or v.shape[0] != length:
-            raise ValueError(f"{name} must have shape ({length},), got {tuple(v.shape)}")
-        if not v.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_lanes(names, vecs, shape=(length,), device=device)
 
 
 def check_distinct(names, tensors) -> None:
@@ -119,6 +127,44 @@ def check_active(active, device: torch.device):
         return None
     if active.dtype != torch.bool or active.dim() != 0 or active.device != device:
         raise ValueError(f"active must be a 0-d bool tensor on {device}")
+    return active
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a plain int), atomically."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def check_lanes(names, vecs, *, shape, device) -> None:
+    """Every vector a batched kernel takes: ``shape`` ((k, n) lanes) float32,
+    contiguous, on ``device``."""
+    for name, v in zip(names, vecs):
+        if v.device != device:
+            raise ValueError(f"{name} is on {v.device}, expected {device}")
+        if v.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 for the CUDA kernel, got {v.dtype}")
+        if tuple(v.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(v.shape)}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def lane_scalars(v, k: int, device: torch.device) -> torch.Tensor:
+    """Per-lane alpha/beta: a contiguous (k,) float32 tensor on ``device``."""
+    t = torch.as_tensor(v, dtype=torch.float32, device=device)
+    if tuple(t.shape) != (k,):
+        raise ValueError(f"expected one scalar per lane, shape ({k},), got {tuple(t.shape)}")
+    return t.contiguous()
+
+
+def check_lane_active(active, k: int, device: torch.device):
+    """The batched 'lane still running' flags: None or a (k,) bool tensor."""
+    if active is None:
+        return None
+    if (active.dtype != torch.bool or tuple(active.shape) != (k,) or active.device != device
+            or not active.is_contiguous()):
+        raise ValueError(f"active must be a contiguous ({k},) bool tensor on {device}")
     return active
 
 
@@ -178,10 +224,13 @@ def _build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built from ``csrc/`` on first call."""
+    """The loaded kernel library, built from ``csrc/`` on first call (once,
+    whichever threads ask first)."""
     global _LIB
     if _LIB is None:
-        _LIB = ctypes.CDLL(str(_build()))
+        with _LIB_LOCK:
+            if _LIB is None:
+                _LIB = ctypes.CDLL(str(_build()))
     return _LIB
 
 

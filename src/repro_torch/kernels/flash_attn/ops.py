@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ..common import stream_ptr
+from ..common import count_launch, stream_ptr
 from . import kernel
 from .ref import flash_attention_ref
 
@@ -58,7 +58,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     o = torch.empty_like(q)
     if B and Tq:
         kernel.launch(q, k, v, o, causal, 1.0 / hd**0.5, stream_ptr(dev))
-        flash_attention.launches += 1
+        count_launch(flash_attention)
     return o
 
 

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ..common import stream_ptr
+from ..common import count_launch, stream_ptr
 from . import kernel
 from .ref import fused_adamw_ref
 
@@ -61,7 +61,7 @@ def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tens
         raise ValueError("p, g, m and v must be distinct buffers")
     if p.numel():
         kernel.launch(hyper, p, g, m, v, stream_ptr(dev))
-        fused_adamw.launches += 1
+        count_launch(fused_adamw)
     return p, m, v
 
 

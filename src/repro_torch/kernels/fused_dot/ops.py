@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ..common import BLOCK, ceil_to, stream_ptr
+from ..common import BLOCK, ceil_to, count_launch, stream_ptr
 from . import kernel
 from .ref import fused_dots_ref
 
@@ -40,7 +40,7 @@ def fused_dots(r: torch.Tensor, u: torch.Tensor, w: torch.Tensor) -> torch.Tenso
     dots = torch.empty(3, dtype=torch.float32, device=dev)
     partials = torch.empty(ceil_to(n, BLOCK) // BLOCK, 3, dtype=torch.float32, device=dev)
     kernel.launch(r, u, w, partials, dots, stream_ptr(dev))
-    fused_dots.launches += 1
+    count_launch(fused_dots)
     return dots
 
 

@@ -5,18 +5,23 @@ import torch
 
 from ..common import (
     BLOCK,
+    LANE_CHUNK,
     MAX_DIAGS,
     ceil_to,
     check_active,
     check_distinct,
+    check_lane_active,
+    check_lanes,
     check_vectors,
+    count_launch,
     device_scalar,
+    lane_scalars,
     stream_ptr,
 )
 from . import kernel
-from .ref import fused_iter_ref
+from .ref import fused_iter_batched_ref, fused_iter_ref
 
-__all__ = ["fused_iter_step"]
+__all__ = ["fused_iter_step", "fused_iter_batched"]
 
 _NAMES = ("z", "q", "s", "p", "x", "r", "u", "w", "m", "m_out", "inv_diag")
 
@@ -51,21 +56,74 @@ def fused_iter_step(data, offsets, z, q, s, p, x, r, u, w, m, m_out, inv_diag,
     all_vecs = (*vecs, m, m_out, inv_diag)
     check_vectors(_NAMES, all_vecs, length=length, device=dev)
     check_distinct(_NAMES, all_vecs)
-    if data.device != dev or data.dtype != torch.float32:
-        raise TypeError(f"data must be float32 on {dev}, got {data.dtype} on {data.device}")
-    if data.shape != (len(offsets), length) or not data.is_contiguous():
-        raise ValueError(f"data must be contiguous ({len(offsets)}, {length}), got {tuple(data.shape)}")
-    if len(offsets) > MAX_DIAGS:
-        raise ValueError(f"the kernel takes at most {MAX_DIAGS} diagonals, got {len(offsets)}")
+    _check_band(data, offsets, length, dev)
     alpha = device_scalar(alpha, dev)
     beta = device_scalar(beta, dev)
     active = check_active(active, dev)
     partials = torch.empty(ceil_to(length, BLOCK) // BLOCK, 3, dtype=torch.float32, device=dev)
     dots = torch.empty(3, dtype=torch.float32, device=dev)
     kernel.launch(offsets, data, m, m_out, vecs, inv_diag, alpha, beta, active, partials, dots,
-                  stream_ptr(dev))
-    fused_iter_step.launches += 1
+                  1, length, stream_ptr(dev))  # the kernel's one-lane case
+    count_launch(fused_iter_step)
     return (*vecs, m_out, dots)
 
 
 fused_iter_step.launches = 0
+
+
+def _check_band(data, offsets, length, dev) -> None:
+    if data.device != dev or data.dtype != torch.float32:
+        raise TypeError(f"data must be float32 on {dev}, got {data.dtype} on {data.device}")
+    if data.shape != (len(offsets), length) or not data.is_contiguous():
+        raise ValueError(f"data must be contiguous ({len(offsets)}, {length}), got {tuple(data.shape)}")
+    if len(offsets) > MAX_DIAGS:
+        raise ValueError(f"the kernel takes at most {MAX_DIAGS} diagonals, got {len(offsets)}")
+
+
+def fused_iter_batched(data, offsets, z, q, s, p, x, r, u, w, m, m_out, inv_diag,
+                       alpha, beta, active=None):
+    """The fused iteration for k right-hand sides at once (the TPU kernel
+    under ``jax.vmap``): vectors are (k, len) float32, ``inv_diag`` (len,)
+    is shared, ``alpha``/``beta`` are (k,) and ``active`` None or a (k,)
+    bool device tensor. The band is read once for up to 8 lanes; a larger
+    k runs in chunks of 8, one launch each. A lane whose flag is False is
+    left untouched (only its m is copied to m_out) and its dots are 0.
+    Returns (z, ..., w, m_out, dots) with dots (k, 3). On CPU tensors this
+    runs the plain version; on CUDA tensors it launches the kernel or
+    raises. ``fused_iter_batched.launches`` counts kernel launches.
+    """
+    vecs = (z, q, s, p, x, r, u, w)
+    dev = z.device
+    if dev.type == "cpu":
+        *new, dots = fused_iter_batched_ref(data, offsets, *vecs, m, inv_diag, alpha, beta)
+        if active is not None:
+            keep = active[:, None]
+            new = [torch.where(keep, upd, old) for upd, old in zip(new, (*vecs, m))]
+            dots = torch.where(keep, dots, torch.zeros_like(dots))
+        for old, upd in zip((*vecs, m_out), new):
+            old.copy_(upd)
+        return (*vecs, m_out, dots)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_iter_batched takes CPU or CUDA tensors, got {dev}")
+    if z.dim() != 2:
+        raise ValueError(f"fused_iter_batched takes (k, n) vectors, got shape {tuple(z.shape)}")
+    k, length = z.shape
+    check_lanes(_NAMES[:10], (*vecs, m, m_out), shape=(k, length), device=dev)
+    check_vectors(_NAMES[10:], (inv_diag,), length=length, device=dev)
+    check_distinct(_NAMES, (*vecs, m, m_out, inv_diag))
+    _check_band(data, offsets, length, dev)
+    alpha = lane_scalars(alpha, k, dev)
+    beta = lane_scalars(beta, k, dev)
+    active = check_lane_active(active, k, dev)
+    partials = torch.empty(k, ceil_to(length, BLOCK) // BLOCK, 3, dtype=torch.float32, device=dev)
+    dots = torch.empty(k, 3, dtype=torch.float32, device=dev)
+    for lo in range(0, k, LANE_CHUNK):
+        sl = slice(lo, min(k, lo + LANE_CHUNK))
+        kernel.launch(offsets, data, m[sl], m_out[sl], [v[sl] for v in vecs], inv_diag,
+                      alpha[sl], beta[sl], None if active is None else active[sl],
+                      partials[sl], dots[sl], sl.stop - sl.start, length, stream_ptr(dev))
+        count_launch(fused_iter_batched)
+    return (*vecs, m_out, dots)
+
+
+fused_iter_batched.launches = 0

@@ -23,3 +23,13 @@ def fused_iter_ref(data, offsets, z, q, s, p, x, r, u, w, m, inv_diag, alpha, be
     beta = torch.as_tensor(beta, dtype=z.dtype, device=z.device)
     n_vec = spmv_dia_ref(data, offsets, m)
     return pipecg_vma_core(z, q, s, p, x, r, u, w, n_vec, m, inv_diag, alpha, beta)
+
+
+def fused_iter_batched_ref(data, offsets, z, q, s, p, x, r, u, w, m, inv_diag, alpha, beta):
+    """The whole iteration over (k, n) vectors with per-lane (k,) alpha and
+    beta: n = A m per lane, then the recurrence. Returns (z', ..., m',
+    dots) with dots (k, 3)."""
+    from ..fused_vma.ref import fused_vma_dots_batched_ref
+
+    n_vec = spmv_dia_ref(data, offsets, m)
+    return fused_vma_dots_batched_ref(z, q, s, p, x, r, u, w, n_vec, m, inv_diag, alpha, beta)

@@ -7,7 +7,8 @@ import torch
 
 from ..common import library
 
-_ENTRIES = {torch.float32: "spmv_bell_f32", torch.bfloat16: "spmv_bell_bf16"}
+# bf16; f32 goes through the lane entry (one vector is one lane)
+_ENTRIES = {torch.bfloat16: "spmv_bell_bf16"}
 _ARGTYPES = [
     ctypes.c_void_p,  # cols (n, R) int32
     ctypes.c_void_p,  # vals (n, R)
@@ -21,17 +22,44 @@ _ARGTYPES = [
 
 
 def supported(dtype: torch.dtype) -> bool:
-    return dtype in _ENTRIES
+    return dtype in _ENTRIES or dtype == torch.float32
 
 
 def launch(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, active, y: torch.Tensor,
            stream: int) -> None:
-    """Launch on ``stream``; shapes and types are checked by the wrapper.
-    ``active`` may be None."""
+    """The bf16 entry on one vector, on ``stream``; shapes and types are
+    checked by the wrapper. ``active`` may be None."""
     fn = getattr(library(), _ENTRIES[x.dtype])
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
+             None if active is None else active.data_ptr(), y.data_ptr(), cols.shape[0],
+             cols.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"spmv_bell kernel launch failed: CUDA error {err}")
+
+
+_LANES_ARGTYPES = [
+    ctypes.c_int,     # lanes
+    ctypes.c_void_p,  # cols (n, R) int32
+    ctypes.c_void_p,  # vals (n, R) f32
+    ctypes.c_void_p,  # x (lanes, n)
+    ctypes.c_void_p,  # active: (lanes,) bool, or NULL
+    ctypes.c_void_p,  # y (lanes, n)
+    ctypes.c_int64,   # n
+    ctypes.c_int,     # R
+    ctypes.c_void_p,  # stream
+]
+
+
+def launch_lanes(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, active,
+                 y: torch.Tensor, lanes: int, stream: int) -> None:
+    """The f32 entry on ``lanes`` rows of n, lanes <= 8 (one 1-D vector is
+    one lane); checked by the wrapper."""
+    fn = library().spmv_bell_lanes_f32
+    fn.argtypes = _LANES_ARGTYPES
+    fn.restype = ctypes.c_int
+    err = fn(lanes, cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
              None if active is None else active.data_ptr(), y.data_ptr(), cols.shape[0],
              cols.shape[1], stream)
     if err != 0:

@@ -5,14 +5,14 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from ..common import MAX_DIAGS, stream_ptr
+from ..common import LANE_CHUNK, MAX_DIAGS, check_lane_active, count_launch, stream_ptr
 from . import kernel
-from .ref import spmv_dia_ref
+from .ref import spmv_dia_batched_ref, spmv_dia_ref
 
 if TYPE_CHECKING:  # the sparse package imports the kernels package
     from ...sparse.formats import DIAMatrix
 
-__all__ = ["spmv_dia_cuda"]
+__all__ = ["spmv_dia_cuda", "spmv_dia_batched"]
 
 
 def spmv_dia_cuda(A: DIAMatrix, x: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -45,9 +45,53 @@ def spmv_dia_cuda(A: DIAMatrix, x: torch.Tensor, out_dtype: torch.dtype | None =
         raise ValueError(f"the kernel takes at most {MAX_DIAGS} diagonals, got {len(A.offsets)}")
     y = torch.empty(n, dtype=out_dtype, device=x.device)
     if n:
-        kernel.launch(A.offsets, A.data, x, y, stream_ptr(x.device))
-        spmv_dia_cuda.launches += 1
+        if x.dtype == torch.float32:  # the lane entry, one lane
+            kernel.launch_lanes(A.offsets, A.data, x, None, y, 1, n, stream_ptr(x.device))
+        else:
+            kernel.launch(A.offsets, A.data, x, y, stream_ptr(x.device))
+        count_launch(spmv_dia_cuda)
     return y
 
 
 spmv_dia_cuda.launches = 0
+
+
+def spmv_dia_batched(A: DIAMatrix, x: torch.Tensor, active=None) -> torch.Tensor:
+    """Y[l] = A @ x[l] for k right-hand sides, x of shape (k, n), float32
+    (the TPU kernel under ``jax.vmap``). The band is read once for up to 8
+    lanes; a larger k runs in chunks of 8, one launch each. ``active`` is
+    None or a (k,) bool device tensor; a lane whose flag is False reads
+    nothing and gets 0. On a CPU tensor this runs the plain version; on a
+    CUDA tensor it launches the kernel or raises.
+    ``spmv_dia_batched.launches`` counts kernel launches.
+    """
+    if x.device.type == "cpu":
+        return spmv_dia_batched_ref(A.data, A.offsets, x, active)
+    if x.device.type != "cuda":
+        raise ValueError(f"spmv_dia_batched takes CPU or CUDA tensors, got {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"spmv_dia_batched takes (k, n) vectors, got shape {tuple(x.shape)}")
+    k, n = x.shape
+    if A.data.device != x.device:
+        raise ValueError(f"data on {A.data.device}, x on {x.device}")
+    if A.data.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"the batched spmv_dia kernel takes f32 data and x, got data "
+                        f"{A.data.dtype}, x {x.dtype}")
+    if A.data.shape != (len(A.offsets), n):
+        raise ValueError(f"shapes: data {tuple(A.data.shape)}, x {tuple(x.shape)}")
+    if not (A.data.is_contiguous() and x.is_contiguous()):
+        raise ValueError("data and x must be contiguous")
+    if len(A.offsets) > MAX_DIAGS:
+        raise ValueError(f"the kernel takes at most {MAX_DIAGS} diagonals, got {len(A.offsets)}")
+    active = check_lane_active(active, k, x.device)
+    y = torch.empty_like(x)
+    if n:
+        for lo in range(0, k, LANE_CHUNK):
+            sl = slice(lo, min(k, lo + LANE_CHUNK))
+            kernel.launch_lanes(A.offsets, A.data, x[sl], None if active is None else active[sl],
+                                y[sl], sl.stop - sl.start, n, stream_ptr(x.device))
+            count_launch(spmv_dia_batched)
+    return y
+
+
+spmv_dia_batched.launches = 0

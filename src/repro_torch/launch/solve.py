@@ -5,16 +5,29 @@ Thin CLI over the plan/execute API: builds one ``repro_torch.plan``
 ``x* = ones / sqrt(N)``. Single device; ``--method`` pcg, chronopoulos
 or pipecg. Matrices: ``poisson7/27/125:n``, ``synthetic:N,nnz_per_row``
 and the Table-I names (``Queen_4147:scale``), all in DIA form. Runs on
-CUDA unless ``--device cpu`` is given.
+CUDA unless ``--device cpu`` is given. ``--rhs K`` serves K right-hand
+sides through the same plan (``plan.solve_batched``) and prints the
+plan's runner count (``traces=``; expect 2: the single solve and the
+K-batch).
 """
 from __future__ import annotations
 
 import argparse
+import sys
 
-import torch
+# the allocator and CUDA environment BEFORE the first torch import
+# (``python -m repro_torch.launch.solve`` reaches this line torch-free); a
+# no-op for every variable already set, and skipped when a running
+# process imports this module for build_matrix()
+if "torch" not in sys.modules:
+    from .env import apply_env
 
-from ..plan import plan, solver_names
-from ..sparse import poisson7, poisson27, poisson125, spmv, synthetic_spd_dia, table1_matrix
+    apply_env()
+
+import torch  # noqa: E402
+
+from ..plan import plan, solver_names  # noqa: E402
+from ..sparse import poisson7, poisson27, poisson125, spmv, synthetic_spd_dia, table1_matrix  # noqa: E402,E501
 
 GENS = {"poisson7": poisson7, "poisson27": poisson27, "poisson125": poisson125}
 
@@ -45,6 +58,8 @@ def main(argv=None):
     ap.add_argument("--rtol", type=float, default=0.0)
     ap.add_argument("--maxiter", type=int, default=10000)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--rhs", type=int, default=1,
+                    help="number of right-hand sides served through the one plan")
     args = ap.parse_args(argv)
 
     A = build_matrix(args.matrix, device=args.device)
@@ -62,6 +77,11 @@ def main(argv=None):
     print("plan:", ", ".join(f"{k}={desc[k]}" for k in sorted(desc)))
 
     res = p.solve(b)
+    if args.rhs > 1:
+        B = torch.stack([(k + 1.0) * b for k in range(args.rhs)])
+        batch = p.solve_batched(B)
+        print(f"served {args.rhs} rhs through one plan: "
+              f"iters={batch.iterations.tolist()} traces={p.trace_count}")
     err = float(torch.linalg.norm(res.x - xstar))
     true_res = float(torch.linalg.norm(b - spmv(A, res.x)))
     print(

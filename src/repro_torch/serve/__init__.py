@@ -1,0 +1,49 @@
+"""repro_torch.serve — batched + async solver serving over the plan cache.
+
+* ``engine``    — ``SolverEngine``: synchronous bucket coalescing over one
+  pinned plan.
+* ``queue``     — bounded admission queue + bucket-closing batch policy
+  (full OR timeout), explicit backpressure (``QueueFull``), deadlines.
+* ``router``    — pool of warm ``SolverPlan``s keyed by (operator
+  fingerprint, method, engine, tolerance bucket); async misses, LRU
+  eviction with in-flight pinning.
+* ``warmstart`` — JSON plan manifests: a fresh replica rebuilds every plan
+  and its runners at startup ("hot in seconds").
+* ``server``    — ``SolverServer``: the façade wiring them together.
+
+The JAX package's LM serving (``generate``, ``make_decode_step``) waits
+for the LM-serving slice.
+"""
+from .engine import SolverEngine, bucket_waste, record_bucket
+from .queue import DeadlineExceeded, QueueFull, RequestQueue, ServerClosed, SolveRequest
+from .router import PlanEntry, PlanPool, pool_key, tolerance_bucket
+from .server import ServeResult, SolverServer
+from .warmstart import (
+    build_operator,
+    load_manifest,
+    operator_spec,
+    register_operator_builder,
+    save_manifest,
+)
+
+__all__ = [
+    "DeadlineExceeded",
+    "PlanEntry",
+    "PlanPool",
+    "QueueFull",
+    "RequestQueue",
+    "ServeResult",
+    "ServerClosed",
+    "SolveRequest",
+    "SolverEngine",
+    "SolverServer",
+    "bucket_waste",
+    "build_operator",
+    "load_manifest",
+    "operator_spec",
+    "pool_key",
+    "record_bucket",
+    "register_operator_builder",
+    "save_manifest",
+    "tolerance_bucket",
+]

@@ -1,0 +1,160 @@
+"""Synchronous solver serving over one pinned plan.
+
+``SolverEngine`` wraps one ``repro_torch.plan`` — operator,
+preconditioner and pinned core are built at construction — and serves
+many right-hand sides: single solves run the plan's single-rhs runner,
+batches its lane-batched one, and ``max_batch`` coalesces arbitrary
+request batches into fixed-size zero-padded buckets, so steady-state
+traffic builds exactly two runners (single + bucket) whatever the
+arrival pattern. (The JAX package's LM half of this module, ``generate``
+and ``make_decode_step``, waits for the LM-serving slice.)
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..obs import metrics as _metrics
+from ..obs.trace import enabled as _obs_enabled, span as _span
+
+__all__ = ["SolverEngine", "bucket_waste", "record_bucket"]
+
+
+def record_bucket(valid: int, size: int) -> None:
+    """Per-bucket occupancy accounting, shared by every batching path.
+
+    One call per bucket execution: ``valid`` live rhs out of ``size``
+    lanes. Feeds the ``serve.buckets`` / ``serve.padded_lanes`` counters
+    and the ``serve.batch_occupancy`` histogram, the numbers the async
+    tier's batcher and ``SolverEngine`` both report.
+    """
+    _metrics.counter("serve.buckets").inc()
+    _metrics.counter("serve.padded_lanes").inc(size - valid)
+    _metrics.histogram("serve.batch_occupancy").record(valid / size)
+
+
+def bucket_waste(iters, step: int) -> int:
+    """Lane-iterations wasted by each bucket's shared worst-case stop.
+
+    ``iters`` are per-rhs iteration counts in submission order; lanes ride
+    until the slowest rhs of their own ``step``-sized bucket stops, so the
+    per-bucket ``max - it`` sum is pure occupancy waste.
+    """
+    iters = np.asarray(iters).ravel()
+    step = max(int(step), 1)
+    return sum(
+        int((grp.max() - grp).sum())
+        for lo in range(0, len(iters), step)
+        if len(grp := iters[lo : lo + step])
+    )
+
+
+def _concat(results):
+    """One SolveResult from bucket results, lanes in order (steps add up:
+    the host ran the buckets one after another)."""
+    first = results[0]
+    return dataclasses.replace(
+        first,
+        **{f: torch.cat([getattr(r, f) for r in results])
+           for f in ("x", "iterations", "residual_norm", "converged", "history")},
+        steps=sum(r.steps for r in results),
+    )
+
+
+class SolverEngine:
+    """Serve many right-hand sides against one pinned ``SolverPlan``.
+
+        eng = SolverEngine(A, method="pipecg", atol=1e-6)
+        res  = eng.solve(b)            # one rhs, the single runner
+        many = eng.solve_batch(B)      # (k, n): one lane-batched loop
+
+    ``max_batch`` turns on request coalescing: incoming batches are split
+    into buckets of exactly ``max_batch`` rhs (the final partial bucket is
+    zero-padded to size; a zero lane converges at once and is dropped from
+    the result), so any traffic pattern runs the same two runners.
+    ``serve.server.SolverServer`` puts an admission queue, a batching
+    policy and a plan-pool router in front of the same bucket economics.
+    """
+
+    def __init__(self, A, M="jacobi", method: str = "pipecg", engine: str = "auto",
+                 atol: float = 1e-5, rtol: float = 0.0, maxiter: int = 10000,
+                 max_batch: Optional[int] = None, **method_kwargs):
+        from ..plan import plan
+
+        if max_batch is not None and max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        self.plan = plan(A, method=method, engine=engine, M=M, atol=atol, rtol=rtol,
+                         maxiter=maxiter, **method_kwargs)
+        self.max_batch = max_batch
+
+    @property
+    def A(self):
+        return self.plan.A
+
+    def describe(self) -> dict:
+        d = self.plan.describe()
+        d["max_batch"] = self.max_batch
+        return d
+
+    def solve(self, b: torch.Tensor):
+        """Solve for a single rhs ``b`` of shape (n,)."""
+        _metrics.counter("serve.requests").inc()
+        with _span("serve.solve", n=b.shape[0]):
+            return self.plan.solve(b)
+
+    def solve_batch(self, bs: torch.Tensor):
+        """Solve a batch of rhs, shape (k, n) -> SolveResult with leading k.
+
+        A bucket runs to its slowest rhs, but the returned ``iterations``
+        are honest per-rhs counts, from the first NaN of each ``history``
+        row. The ``serve.*`` occupancy and waste metrics price mixing rhs
+        of different difficulty in one bucket.
+        """
+        k = bs.shape[0]
+        _metrics.counter("serve.requests").inc(k)
+        with _span("serve.solve_batch", k=k):
+            out = self._solve_batch_impl(bs)
+        return self._with_per_rhs_iterations(out)
+
+    def _solve_batch_impl(self, bs: torch.Tensor):
+        if self.max_batch is None or bs.shape[0] == 0:
+            # one un-split bucket of size k: still a bucket execution, so it
+            # still reports occupancy (full, no pads)
+            if bs.shape[0]:
+                record_bucket(bs.shape[0], bs.shape[0])
+            return self.plan.solve_batched(bs)
+        k = bs.shape[0]
+        chunks = []
+        for lo in range(0, k, self.max_batch):
+            chunk = bs[lo : lo + self.max_batch]
+            valid = chunk.shape[0]
+            pad = self.max_batch - valid
+            if pad:  # coalesce the remainder into the same bucket runner
+                chunk = torch.cat([chunk, chunk.new_zeros(pad, bs.shape[1])])
+            record_bucket(valid, self.max_batch)
+            res = self.plan.solve_batched(chunk)
+            chunks.append(dataclasses.replace(
+                res, **{f: getattr(res, f)[:valid] for f in
+                        ("x", "iterations", "residual_norm", "converged", "history")}))
+        return _concat(chunks)
+
+    def _with_per_rhs_iterations(self, out):
+        """Replace ``iterations`` with per-rhs counts from the NaN tails
+        (computed on the device, no host sync). With observability on, also
+        records the per-rhs spread and the lane-iterations wasted by each
+        bucket's shared worst-case stop."""
+        hist = out.history
+        if hist.dim() < 2 or hist.shape[0] == 0:
+            return out
+        per_rhs = ((~hist.isnan()).sum(dim=-1) - 1).clamp_min(0).to(torch.int32)
+        out = dataclasses.replace(out, iterations=per_rhs)
+        if _obs_enabled():
+            iters = per_rhs.cpu().numpy()
+            for it in iters:
+                _metrics.histogram("serve.rhs_iterations").record(int(it))
+            step = len(iters) if self.max_batch is None else self.max_batch
+            _metrics.counter("serve.wasted_lane_iterations").inc(bucket_waste(iters, step))
+        return out

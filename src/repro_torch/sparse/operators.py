@@ -11,6 +11,8 @@ anything satisfying it:
 * :class:`FunctionOperator` — a matrix-free operator wrapping a callable
   (a stencil applied on the fly, a Jacobian-vector product). Pass
   ``diag`` when the Jacobi preconditioner should be available.
+* :class:`CountingOperator` — wraps any of these and counts its
+  applications (serving and benchmark accounting).
 
 ``as_operator`` adapts plain callables to the protocol.
 """
@@ -23,7 +25,7 @@ import torch
 
 from ..kernels.common import resolve_device
 
-__all__ = ["LinearOperator", "FunctionOperator", "as_operator"]
+__all__ = ["LinearOperator", "FunctionOperator", "CountingOperator", "as_operator"]
 
 
 @runtime_checkable
@@ -44,7 +46,9 @@ class FunctionOperator:
     """Matrix-free SPD operator: ``y = fn(x)`` with no materialized matrix.
 
     ``fn`` must be an ``(n,) -> (n,)`` map that is linear and symmetric
-    positive definite (the solvers assume, not check, this). ``diag`` is
+    positive definite (the solvers assume, not check, this); a batched
+    solve calls it once per application with all k lanes, ``(k, n) ->
+    (k, n)``. ``diag`` is
     the operator diagonal, required only when a Jacobi preconditioner is
     requested. ``device`` is where ``fn`` runs: ``diag``'s device when
     given, else CUDA unless the caller names the CPU.
@@ -80,6 +84,68 @@ class FunctionOperator:
                 "preconditioner object"
             )
         return self.diag
+
+
+class CountingOperator:
+    """Matvec-counting wrapper: serve/benchmark accounting for operator cost.
+
+    Wraps any :class:`LinearOperator` (or dense tensor / matrix container)
+    and counts its applications on the host:
+
+        C = CountingOperator(A)
+        res = repro_torch.plan(C, method="pipecg", M="jacobi").solve(b)
+        C.calls                    # matvecs this solve performed
+        C.applications(res)        # the same, from the result alone
+
+    The port runs eagerly, so every application is a call: ``calls``
+    counts each one (a batched solve's application of all k lanes is one
+    call); the JAX package's ``trace_calls`` (call sites seen under a
+    trace) has no counterpart. ``applications(result)`` gives the
+    applications one solve needs from its result: three set-up matvecs
+    (pipecg: A x0, A u, A m) once per solve plus one per step of the loop
+    (``result.steps``, which counts the no-op steps up to the host's poll
+    as the loop runs them). The fingerprint of a wrapper is process-local
+    (``id:``), so it pools but does not warm-start across processes.
+    """
+
+    def __init__(self, base):
+        self.base = base
+        self.calls = 0  # matvec invocations
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.base.shape
+
+    @property
+    def dtype(self):
+        return getattr(self.base, "dtype", torch.float32)
+
+    @property
+    def device(self) -> torch.device:
+        return self.base.device
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        self.calls += 1
+        from .spmv import spmv  # routes formats/dense/protocol alike
+
+        return spmv(self.base, x)
+
+    def diagonal(self) -> torch.Tensor:
+        if not hasattr(self.base, "diagonal"):
+            raise ValueError(
+                f"{type(self.base).__name__} has no diagonal(); use "
+                "M='identity' or an explicit preconditioner"
+            )
+        return self.base.diagonal()
+
+    def reset(self) -> None:
+        self.calls = 0
+
+    def applications(self, result, setup: int = 3) -> int:
+        """Matvecs one solve performed: ``setup`` (pipecg 3, chronopoulos 2,
+        pcg 1) plus one per loop step. A batched result counts one application of all its
+        lanes per matvec, as :attr:`calls` does."""
+        return int(setup + result.steps)
 
 
 def as_operator(A, n: int | None = None, dtype=None, diag=None, *, device=None):

@@ -27,6 +27,14 @@ on a CPU operator computes the same thing as "torch".
 ``spmv(A, x, active=flag)`` hands a solver loop's 0-d bool device flag
 to the engine that reads it (the Bell CUDA kernel), which then skips its
 work once the solve has converged; every other engine ignores the flag.
+
+``x`` may be ``(k, n)``, k right-hand sides (the JAX package's
+``jax.vmap`` of the SPMV): the plain engines broadcast over the lane
+axis, the CUDA engines run their kernels' lane-batched entries (which
+read the operator once for up to 8 lanes and take a ``(k,)`` flag), and
+a matrix-free operator's ``matvec`` receives the ``(k, n)`` tensor.
+The bf16 engine has no lane-batched kernel and refuses ``(k, n)`` on
+the card.
 """
 from __future__ import annotations
 
@@ -73,6 +81,9 @@ def spmv_dia_bf16(A: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     A16 = A if A.dtype == torch.bfloat16 else A.with_dtype(torch.bfloat16)
     x16 = x.to(torch.bfloat16)
     if x.device.type == "cuda":
+        if x.dim() != 1:
+            raise ValueError("the bf16 SPMV engine has no lane-batched kernel; solve a "
+                             "batch with spmv_engine='cuda' or 'auto'")
         from ..kernels.spmv_dia import spmv_dia_cuda
 
         return spmv_dia_cuda(A16, x16, out_dtype=acc).to(x.dtype)
@@ -86,43 +97,50 @@ def spmv_bell(A: BellMatrix, x: torch.Tensor) -> torch.Tensor:
 
 def spmv_csr(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
     """Reference CSR SPMV: gather columns, scatter-add into rows."""
-    return torch.zeros(A.n, dtype=x.dtype, device=x.device).index_add_(
-        0, A.rows, A.vals * x[A.cols])
+    return torch.zeros(*x.shape[:-1], A.n, dtype=x.dtype, device=x.device).index_add_(
+        -1, A.rows, A.vals * x[..., A.cols])
 
 
 def spmv_csr_segsum(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
     """CSR SPMV as a sorted segment sum over the per-entry products.
 
     ``rows`` is sorted by construction, so each row is one contiguous
-    segment; an empty row sums to 0.
+    segment; an empty row sums to 0. Lanes of a (k, n) x are reduced in
+    one call, along the entry axis.
     """
-    return torch.segment_reduce(A.vals * x[A.cols], "sum", lengths=A.row_lengths)
+    if x.dim() == 1:
+        return torch.segment_reduce(A.vals * x[A.cols], "sum", lengths=A.row_lengths)
+    prod = (A.vals * x[..., A.cols]).movedim(-1, 0)
+    return torch.segment_reduce(prod, "sum", lengths=A.row_lengths).movedim(0, -1).contiguous()
 
 
 def _spmv_dense(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return A @ x
+    return A @ x if x.dim() == 1 else x @ A.mT
 
 
 def _spmv_matvec(A, x: torch.Tensor) -> torch.Tensor:
     return A.matvec(x)
 
 
-def _spmv_dia_cuda(A: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
-    from ..kernels.spmv_dia import spmv_dia_cuda
+def _spmv_dia_cuda(A: DIAMatrix, x: torch.Tensor, active=None) -> torch.Tensor:
+    from ..kernels.spmv_dia import spmv_dia_batched, spmv_dia_cuda
 
-    return spmv_dia_cuda(A, x)
+    # the single-lane kernel has no flag; the batched one skips idle lanes
+    return spmv_dia_batched(A, x, active) if x.dim() == 2 else spmv_dia_cuda(A, x)
 
 
 def _spmv_bell_cuda(A: BellMatrix, x: torch.Tensor, active=None) -> torch.Tensor:
-    from ..kernels.spmv_bell import spmv_bell_cuda
+    from ..kernels.spmv_bell import spmv_bell_batched, spmv_bell_cuda
 
+    if x.dim() == 2:
+        return spmv_bell_batched(A, x, active)
     return spmv_bell_cuda(A, x, active)
 
 
 # (matrix type) -> (engine name) -> fn(A, x) -> y
 _REGISTRY: Dict[type, Dict[str, Callable]] = {}
 # the backends that also take a solver loop's flag: fn(A, x, active)
-_TAKES_ACTIVE = (_spmv_bell_cuda,)
+_TAKES_ACTIVE = (_spmv_dia_cuda, _spmv_bell_cuda)
 
 
 def register_spmv(mat_type: type, engine: str, fn: Callable, *, overwrite: bool = False) -> None:
