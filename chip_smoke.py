@@ -59,18 +59,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ms per solve to rtol 1e-3 on each path, median of 5.
 6. the serving tier at full width, after 4b and before 5, on the
    poisson125(128) DIA operator and Queen_4147's Bell form built above:
-   (a) the four lane-batched entries (fused_iter at poisson125, spmv_dia
-   at poisson125, fused_vma at Queen's length, spmv_bell at Queen) at
-   k = 1, 3 and 8 against their plain versions and, lane by lane, against
-   the single-rhs kernel, with one inactive lane checked bit for bit
-   untouched (an SPMV gives it 0); the script prints whether every active
-   lane equals the single kernel bit for bit; times at k = 8 beside the
-   plain versions, cuSPARSE's SpMM (torch.sparse CSR @ dense, a yardstick
-   the port never calls) and the bytes bound; (b) ``plan.solve_batched``
-   at a fixed 200 iterations (atol = rtol = 0) for k = 1, 2, 4, 8 on both
-   operators (auto -> batched fused_iter; auto -> batched spmv_bell +
-   fused_vma; no single-rhs kernel may launch), ms per batched iteration
-   and per rhs-iteration beside the bound and the single solve; (c) one
+   (a) the five lane-batched entries (fused_iter at poisson125, spmv_dia
+   at poisson125 in f32 and in bf16 with f32 sums, fused_vma at Queen's
+   length, spmv_bell at Queen and at a 200,000-row Bell operator whose
+   band is far wider than the kernel's window) at k = 1, 3 and 8 against
+   their plain versions and, lane by lane, against the single-rhs kernel
+   (the bf16 one: spmv_dia_cuda with an f32 output), with one inactive
+   lane checked bit for bit untouched (an SPMV gives it 0); the script
+   prints whether every active lane equals the single kernel bit for bit;
+   times at k = 8 (spmv_bell and fused_iter lanes also at k = 2 and 4)
+   beside the plain versions, cuSPARSE's SpMM (torch.sparse CSR @ dense,
+   a yardstick the port never calls) and the bytes bound; (b)
+   ``plan.solve_batched`` at a fixed 200 iterations (atol = rtol = 0) for
+   k = 1, 2, 4, 8 on both operators (auto -> batched fused_iter; auto ->
+   batched spmv_bell + fused_vma; no single-rhs kernel may launch), ms per
+   batched iteration and per rhs-iteration beside the bound and the
+   single solve, and a bucket of 8 on a spmv_engine="bf16" plan at
+   poisson125 (replace_every 5, rtol 1e-2; its init SPMV the bf16 lane
+   entry), each lane converged, with plan.solve's iterations and x within
+   1e-5, and the lanes freezing at more than one iteration count; (c) one
    ``SolverServer`` (max_batch 8, max_wait_ms 5) fed 64 seeded requests
    per operator (scales over two decades, atol 1e-7 or 1e-6, rtol 1e-3):
    every answer has plan.solve's iteration count, x within 1e-5 relative
@@ -241,9 +248,14 @@ def main() -> None:
     library()
     info = build_info()
     log(f"kernel library: {info['path']} built in {info['seconds']:.1f} s (cached={info['cached']})")
+    entry = ""  # ptxas names each kernel before its registers and spills
     for line in info["log"].splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
+        if "Compiling entry function" in line and "'" in line:
+            entry = line.split("'")[1]
+        elif line.startswith("=="):
             log(f"  nvcc: {line.strip()}")
+        elif "registers" in line or "spill" in line:
+            log(f"  nvcc: {entry}: {line.strip()}")
     bw_peak, f32_peak, bf16_peak = peak_rates(name)
     record.update(card=card, device=name, torch=torch.__version__, cuda=torch.version.cuda,
                   build_seconds=info["seconds"], peak_bytes_per_s=bw_peak,
@@ -966,18 +978,33 @@ def main() -> None:
         spmv_bell_batched,
         spmv_bell_batched_ref,
         spmv_dia_batched,
+        spmv_dia_batched_bf16,
+        spmv_dia_batched_bf16_ref,
         spmv_dia_batched_ref,
     )
     from repro_torch.serve import SolverServer, operator_spec, register_operator_builder
+    from repro_torch.sparse import synthetic_spd_dia
 
     del QC, qcases
     gc.collect()
     torch.cuda.empty_cache()
     BATCHED = {"fused_iter_batched": fused_iter_batched, "spmv_dia_batched": spmv_dia_batched,
+               "spmv_dia_batched_bf16": spmv_dia_batched_bf16,
                "fused_vma_batched": fused_vma_dots_batched, "spmv_bell_batched": spmv_bell_batched}
     counters.update(BATCHED)
     inv_a = 1.0 / A.diagonal()
     inv_q = 1.0 / QB.diagonal()
+    A16 = A.with_dtype(torch.bfloat16)
+    # a Bell operator whose band is far wider than the Bell lane kernel's
+    # window (halves of at most 256 columns at 8 lanes): its slots outside
+    # the window are gathered from X
+    WN = 200_000
+    WB = bell_from_csr(csr_from_dia(synthetic_spd_dia(WN, nnz_per_row=27, bandwidth=WN // 4,
+                                                      seed=5, device=dev)), device=dev)
+    log(f"wide-band Bell operator: N={WN}, R={WB.slots_per_row}, column span {WB.column_span} "
+        f"(Queen_4147's {QB.column_span})")
+    if WB.column_span <= 4 * 256:
+        fail(f"the wide-band operator's span {WB.column_span} fits the lane kernel's window")
 
     def lanes_of(k, n, seed, scale=1.0):
         g_ = torch.Generator(device=dev)
@@ -988,6 +1015,9 @@ def main() -> None:
         r_, u_, w_ = vecs[5][lane], vecs[6][lane], vecs[7][lane]
         return float(torch.stack([(r_ * u_).abs().sum(), (w_ * u_).abs().sum(),
                                   (u_ * u_).sum()]).max())
+
+    def bf16_single(op, x1):  # the single-rhs bf16 kernel with the lane entry's f32 output
+        return spmv_dia_cuda(op, x1, out_dtype=torch.float32)
 
     # (a) each batched entry against its plain version and, lane by lane,
     # against the single-rhs kernel; one inactive lane left bit for bit
@@ -1000,22 +1030,28 @@ def main() -> None:
             act[off] = False
         tag = f"k={k_l} inactive={off}"
         seed += 10
-        # spmv_dia at poisson125(128), spmv_bell at Queen_4147's Bell form
-        for kn, fn, ref, single, op, refargs in (
+        # spmv_dia at poisson125(128) in f32 and bf16 (f32 sums and y), spmv_bell
+        # at Queen_4147's Bell form and at the wide-band operator
+        for kn, fn, ref, single, op, refargs, dtype, tol in (
                 ("spmv_dia_batched", spmv_dia_batched, spmv_dia_batched_ref, spmv_dia_cuda, A,
-                 (A.data, A.offsets)),
+                 (A.data, A.offsets), torch.float32, VEC),
+                ("spmv_dia_batched_bf16", spmv_dia_batched_bf16, spmv_dia_batched_bf16_ref,
+                 bf16_single, A16, (A16.data, A.offsets), torch.bfloat16, VEC),
                 ("spmv_bell_batched", spmv_bell_batched, spmv_bell_batched_ref, spmv_bell_cuda, QB,
-                 (QB.cols, QB.vals))):
-            X = lanes_of(k_l, op.n, seed)
+                 (QB.cols, QB.vals), torch.float32, VEC),
+                ("spmv_bell_batched", spmv_bell_batched, spmv_bell_batched_ref, spmv_bell_cuda, WB,
+                 (WB.cols, WB.vals), torch.float32, VEC)):
+            X = lanes_of(k_l, op.n, seed).to(dtype)
             Y = fn(op, X, act)
-            errs[kn] = max(errs[kn], check(f"{kn} {tag}", Y, ref(*refargs, X, act), **VEC))
+            label = f"{kn} {tag}{' (wide band)' if op is WB else ''}"
+            errs[kn] = max(errs[kn], check(label, Y, ref(*refargs, X, act), **tol))
             for lane in range(k_l):
                 if not act[lane]:
                     if Y[lane].any():
-                        fail(f"{kn} {tag}: inactive lane {lane} is not 0")
+                        fail(f"{label}: inactive lane {lane} is not 0")
                     continue
                 y1 = single(op, X[lane])
-                check(f"{kn} {tag} lane {lane} vs the single kernel", Y[lane], y1, **VEC)
+                check(f"{label} lane {lane} vs the single kernel", Y[lane], y1, **tol)
                 bits[kn] &= bool(torch.equal(Y[lane], y1))
             del X, Y
         # fused_vma at Queen_4147's length, fused_iter at poisson125(128)'s
@@ -1073,14 +1109,33 @@ def main() -> None:
     record["batched_bits_equal_single"] = bits
     torch.cuda.empty_cache()
 
+    del WB
     # times at the serving bucket (k = 8), all lanes active, beside the plain
-    # versions, cuSPARSE's SpMM (torch.sparse CSR @ dense) and the bytes bound
+    # versions, cuSPARSE's SpMM (torch.sparse CSR @ dense) and the bytes bound;
+    # the two kernels redesigned for Hopper (spmv_bell, fused_iter lanes)
+    # also at k = 2 and 4
     KB = 8
+    lane_ms = {"spmv_bell_batched": {}, "fused_iter_batched": {}}
+    for k_t in (2, 4):
+        Xt = lanes_of(k_t, QN, 690)
+        lane_ms["spmv_bell_batched"][k_t] = timed(lambda: spmv_bell_batched(QB, Xt), 10)
+        del Xt
+        vt = [lanes_of(k_t, N, 691 + i, 1e-3) for i in range(9)]
+        at = torch.full((k_t,), 1e-3, device=dev)
+        mt = torch.empty_like(vt[8])
+        lane_ms["fused_iter_batched"][k_t] = timed(
+            lambda: fused_iter_batched(A.data, A.offsets, *vt, mt, inv_a, at, at), 10)
+        del vt, mt
     a8 = torch.full((KB,), 1e-3, device=dev)
     Xa, Xq = lanes_of(KB, N, 700), lanes_of(KB, QN, 701)
     vq = [lanes_of(KB, QN, 710 + i, 1e-3) for i in range(10)]
     times["spmv_dia_batched"] = (timed(lambda: spmv_dia_batched(A, Xa), 10),
                                  timed(lambda: spmv_dia_batched_ref(A.data, A.offsets, Xa), 2, 3))
+    Xa16 = Xa.to(torch.bfloat16)
+    times["spmv_dia_batched_bf16"] = (
+        timed(lambda: spmv_dia_batched_bf16(A16, Xa16), 10),
+        timed(lambda: spmv_dia_batched_bf16_ref(A16.data, A.offsets, Xa16), 2, 3))
+    del Xa16
     times["spmv_bell_batched"] = (timed(lambda: spmv_bell_batched(QB, Xq), 10),
                                   timed(lambda: spmv_bell_batched_ref(QB.cols, QB.vals, Xq), 1, 3))
     times["fused_vma_batched"] = (timed(lambda: fused_vma_dots_batched(*vq, inv_q, a8, a8), 20),
@@ -1125,19 +1180,30 @@ def main() -> None:
     del csr_q, Xa, Xq
     torch.cuda.empty_cache()
     kd = A.n_diags
-    work.update({
-        "fused_iter_batched": (kd * N * 4 + N * 4 + KB * N * 72 + KB * 21,
-                               KB * (2 * kd * N + 23 * N)),
-        "spmv_dia_batched": (kd * N * 4 + KB * N * 8, KB * 2 * kd * N),
-        "fused_vma_batched": (QN * 4 + KB * QN * 76 + KB * 21, KB * 23 * QN),
-        "spmv_bell_batched": (QN * R * 8 + KB * QN * 8, KB * 2 * QN * R),
-    })
+
+    def lane_work(kn, k_):
+        """Least bytes and f32 operations of a lane entry at k_ lanes."""
+        return {
+            "fused_iter_batched": (kd * N * 4 + N * 4 + k_ * N * 72 + k_ * 21,
+                                   k_ * (2 * kd * N + 23 * N)),
+            "spmv_dia_batched": (kd * N * 4 + k_ * N * 8, k_ * 2 * kd * N),
+            "spmv_dia_batched_bf16": (kd * N * 2 + k_ * N * (2 + 4), k_ * 2 * kd * N),
+            "fused_vma_batched": (QN * 4 + k_ * QN * 76 + k_ * 21, k_ * 23 * QN),
+            "spmv_bell_batched": (QN * R * 8 + k_ * QN * 8, k_ * 2 * QN * R),
+        }[kn]
+
     for kn in BATCHED:
-        nbytes, ops = work[kn]
-        bounds[kn] = bound_of(nbytes, ops, f32_peak)
+        work[kn] = lane_work(kn, KB)
+        bounds[kn] = bound_of(*work[kn], f32_peak)
         log(f"{kn} (k={KB}): {times[kn][0]:.4f} ms (bound {bounds[kn][0]:.4f} ms, "
             f"{bounds[kn][1]}, {100 * bounds[kn][0] / times[kn][0]:.0f}%), plain "
             f"{times[kn][1]:.3f} ms, library {library.get(kn, float('nan')):.4f} ms")
+    for kn, by_k in lane_ms.items():
+        by_k[KB] = times[kn][0]
+        for k_t, ms in sorted(by_k.items()):
+            bd = bound_of(*lane_work(kn, k_t), f32_peak)[0]
+            log(f"{kn} k={k_t}: {ms:.4f} ms (bound {bd:.4f} ms, {100 * bd / ms:.0f}%)")
+    record["lane_kernel_ms"] = lane_ms
 
     # (b) solve_batched at a fixed 200 iterations, k = 1, 2, 4, 8, beside the
     # single solve; the bound of a batched iteration is its kernels' bounds
@@ -1188,6 +1254,44 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
     record["solve_batched"] = batched_ms
+
+    # the "bf16" SPMV engine's bucket of 8 on poisson125(128): its init SPMV
+    # is the bf16 lane entry (the f32 one replaces the residual every 5
+    # iterations); each lane must converge, with plan.solve's iterations and
+    # x. The lanes' bf16 roundings differ with their scale, so they stop at
+    # different iterations: the bucket freezes lanes one by one
+    pb = repro_torch.plan(A, method="pipecg", engine="auto", M="jacobi", spmv_engine="bf16",
+                          replace_every=5, atol=0.0, rtol=1e-2, maxiter=300)
+    B = torch.stack([(1.0 + 0.25 * lane) * b for lane in range(KB)])
+    singles = [pb.solve(B[lane]) for lane in range(KB)]
+    for f in counters.values():
+        f.launches = 0
+    res = pb.solve_batched(B)
+    sync()
+    bf16_launches = {kn: f.launches for kn, f in counters.items()}
+    launched = {kn for kn, f in bf16_launches.items() if f}
+    if not {"spmv_dia_batched_bf16", "fused_iter_batched"} <= launched or launched - set(BATCHED):
+        fail(f"poisson125 bf16 bucket launched {launched}")
+    bf16_bits = True
+    for lane, one in enumerate(singles):
+        dx = float((res.x[lane] - one.x).norm() / one.x.norm())
+        if int(res.iterations[lane]) != int(one.iterations) or not dx <= 1e-5:
+            fail(f"poisson125 bf16 bucket lane {lane}: {int(res.iterations[lane])} iterations, "
+                 f"plan.solve {int(one.iterations)}; |dx|/|x| {dx:.3e}")
+        if not (bool(one.converged) and bool(res.converged[lane])):
+            fail(f"poisson125 bf16 bucket lane {lane}: did not converge in "
+                 f"{int(one.iterations)} iterations")
+        bf16_bits &= bool(torch.equal(res.x[lane], one.x))
+    if len(set(res.iterations.tolist())) < 2:
+        fail(f"poisson125 bf16 bucket: every lane ran {res.iterations.tolist()} iterations, "
+             f"no lane froze before another")
+    record["bf16_bucket"] = {"iterations": res.iterations.tolist(), "x_bits_equal": bf16_bits,
+                             "launches": bf16_launches}
+    log(f"poisson125 bf16 bucket (k={KB}): lanes converged in {res.iterations.tolist()} iterations, "
+        f"each plan.solve's on a spmv_engine='bf16' plan (x bit for bit: {bf16_bits}); launches "
+        f"{ {kn: v for kn, v in bf16_launches.items() if v} }")
+    del pb, B, singles, res
+    gc.collect()
 
     # (c) a SolverServer on both operators: 64 seeded requests each, scales
     # over two decades, atol in two decades (so two pooled plans each),
@@ -1595,6 +1699,8 @@ def main() -> None:
                                     {"launches": serve_launches["poisson125"]}),
              "spmv_dia_batched": ("poisson125 server, 64 requests (6c)",
                                   {"launches": serve_launches["poisson125"]}),
+             "spmv_dia_batched_bf16": ("poisson125 bf16 bucket of 8 (6b)",
+                                       {"launches": bf16_launches}),
              "fused_vma_batched": ("Queen_4147 Bell server, 64 requests (6c)",
                                    {"launches": serve_launches["Queen_4147 Bell"]}),
              "spmv_bell_batched": ("Queen_4147 Bell server, 64 requests (6c)",

@@ -5,7 +5,8 @@ fused_iter — the whole PIPECG iteration: banded DIA SPMV + 8 VMAs +
              Jacobi PC + dot partials in one launch.
 fused_vma  — the iteration core: 8 VMAs + Jacobi PC + dot partials in
              one pass (paper §V-B kernel fusion, extended).
-spmv_dia   — banded/stencil SPMV, f32 or bf16 storage, f32 accumulate.
+spmv_dia   — banded/stencil SPMV, f32 or bf16 storage, f32 accumulate
+             (the lane-batched entry in both, ``spmv_dia_batched_bf16``).
 spmv_bell  — Block-ELLPACK SPMV (general sparsity), f32 or bf16 storage,
              f32 accumulate, any row count.
 fused_dot  — the three PIPECG dots (r,u), (w,u), (u,u) in one pass.
@@ -32,7 +33,14 @@ from .fused_vma import (
     fused_vma_dots_ref,
 )
 from .spmv_bell import spmv_bell_batched, spmv_bell_batched_ref, spmv_bell_cuda, spmv_bell_ref
-from .spmv_dia import spmv_dia_batched, spmv_dia_batched_ref, spmv_dia_cuda, spmv_dia_ref
+from .spmv_dia import (
+    spmv_dia_batched,
+    spmv_dia_batched_bf16,
+    spmv_dia_batched_bf16_ref,
+    spmv_dia_batched_ref,
+    spmv_dia_cuda,
+    spmv_dia_ref,
+)
 
 __all__ = [
     "adamw_hyper",
@@ -55,6 +63,8 @@ __all__ = [
     "spmv_bell_cuda",
     "spmv_bell_ref",
     "spmv_dia_batched",
+    "spmv_dia_batched_bf16",
+    "spmv_dia_batched_bf16_ref",
     "spmv_dia_batched_ref",
     "spmv_dia_cuda",
     "spmv_dia_ref",

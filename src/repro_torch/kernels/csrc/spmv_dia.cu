@@ -59,60 +59,90 @@ int spmv_dia_bf16_bf16(const int* offsets, int k, const void* data, const void* 
 
 }  // extern "C"
 
-// ---- lane-batched entry: Y[l] = A X[l] for k right-hand sides (f32) -------
+// ---- lane-batched entries: Y[l] = A X[l] for k right-hand sides ----------
 //
-// Replaces src/repro/kernels/spmv_dia/kernel.py:spmv_dia_padded in f32, and
-// the same kernel under jax.vmap (init, residual replacement and the "cuda"
-// engine of a batched solve on a DIA operator); one vector is k = 1.
+// Replaces src/repro/kernels/spmv_dia/kernel.py:spmv_dia_padded, and the
+// same kernel under jax.vmap (init, residual replacement and the "cuda"
+// engine of a batched solve on a DIA operator; the "bf16" engine's SPMV of
+// a batched solve); one vector is k = 1. data and X are both f32 or both
+// bf16; the sums are f32 and Y is f32 (spmv_dia_bf16's out_dtype=acc).
 //
-// Bound on this card: bytes, k_diag * 4 + 8 K bytes a row: the band is read
-// once for all K lanes. Design: the row loop above with K sums in
-// registers, each in diagonal order (so independent of K), x staged
-// in shared memory run by run of nearby diagonals (dia_lanes_sum in
-// common.cuh; gathering it through L1 per diagonal and lane ran at 28% of
-// the bound at K = 8). A lane whose flag is 0 reads nothing and gets
+// Bound on this card: bytes, k_diag * s + 4 (s + 1) K bytes a row (s the
+// storage's bytes): the band is read once for all K lanes. Design: the row
+// loop above with K sums in registers, each in diagonal order (so
+// independent of K, and lane l's bits are the single kernel's on X[l]),
+// X staged group by group of nearby diagonals in a lane-interleaved window
+// in shared memory (dia_lanes_sum in common.cuh, as fused_iter; bf16 is
+// converted to f32 on its way in, through registers, since cp.async copies
+// 4 bytes at least). A lane whose flag is 0 reads nothing and gets
 // Y[l] = 0, as spmv_bell gives a converged solve; with no flag every lane
 // is computed.
-template <int K>
+template <int K, typename T>
 __global__ void __launch_bounds__(REPRO_BLOCK)
-spmv_dia_lanes_kernel(const __grid_constant__ DiagRuns runs, const float* __restrict__ data,
-                      const float* __restrict__ x, const uint8_t* __restrict__ active,
+spmv_dia_lanes_kernel(const __grid_constant__ DiagRuns runs, const T* __restrict__ data,
+                      const T* __restrict__ x, const uint8_t* __restrict__ active,
                       float* __restrict__ y, int64_t n) {
-  __shared__ float win[K * (REPRO_BLOCK + REPRO_RUN_SPAN)];
+  extern __shared__ __align__(16) float repro_smem[];
   const int64_t i0 = (int64_t)blockIdx.x * REPRO_BLOCK;
   const int64_t i = i0 + threadIdx.x;
   const unsigned live = live_lanes(active, K);  // the same for the whole grid
   float acc[K];
 #pragma unroll
   for (int l = 0; l < K; ++l) acc[l] = 0.f;
-  if (live != 0) dia_lanes_sum<K>(runs, data, x, live, i0, n, acc, win);
+  if (live != 0) dia_lanes_sum<K>(runs, data, x, live, i0, n, acc, repro_smem);
   if (i >= n) return;
 #pragma unroll
   for (int l = 0; l < K; ++l) y[(int64_t)l * n + i] = ((live >> l) & 1u) ? acc[l] : 0.f;
 }
 
-extern "C" int spmv_dia_lanes_f32(const int* offsets, int k, int lanes, const void* data,
-                                  const void* x, const void* active, void* y, int64_t n,
-                                  void* stream) {
+template <int K, typename T>
+static cudaError_t launch_dia_lanes(const int* offsets, int k, const void* data, const void* x,
+                                    const void* active, void* y, int64_t n, cudaStream_t st) {
+  static std::atomic<int> raised{0};
+  const DiagRuns runs = lane_runs<K>(offsets, k);
+  const size_t smem = dia_window_bytes<K>(runs);
+  const cudaError_t err = allow_shared(spmv_dia_lanes_kernel<K, T>, smem, &raised);
+  if (err != cudaSuccess) return err;
+  spmv_dia_lanes_kernel<K, T><<<(unsigned)repro_blocks(n), REPRO_BLOCK, smem, st>>>(
+      runs, (const T*)data, (const T*)x, (const uint8_t*)active, (float*)y, n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static int spmv_dia_lanes(const int* offsets, int k, int lanes, const void* data, const void* x,
+                          const void* active, void* y, int64_t n, void* stream) {
   if (k < 0 || k > REPRO_MAX_DIAGS || n < 0 || lanes < 1 || lanes > REPRO_MAX_LANES)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  const DiagRuns offs = make_runs(offsets, k);
-  const unsigned blocks = (unsigned)repro_blocks(n);
   cudaStream_t st = (cudaStream_t)stream;
-  const float* d = (const float*)data;
-  const float* xs = (const float*)x;
-  const uint8_t* act = (const uint8_t*)active;
-  float* ys = (float*)y;
+  cudaError_t err = cudaErrorInvalidValue;
+#define REPRO_DIA_LANES(K) \
+  case K: err = launch_dia_lanes<K, T>(offsets, k, data, x, active, y, n, st); break;
   switch (lanes) {
-    case 1: spmv_dia_lanes_kernel<1><<<blocks, REPRO_BLOCK, 0, st>>>(offs, d, xs, act, ys, n); break;
-    case 2: spmv_dia_lanes_kernel<2><<<blocks, REPRO_BLOCK, 0, st>>>(offs, d, xs, act, ys, n); break;
-    case 3: spmv_dia_lanes_kernel<3><<<blocks, REPRO_BLOCK, 0, st>>>(offs, d, xs, act, ys, n); break;
-    case 4: spmv_dia_lanes_kernel<4><<<blocks, REPRO_BLOCK, 0, st>>>(offs, d, xs, act, ys, n); break;
-    case 5: spmv_dia_lanes_kernel<5><<<blocks, REPRO_BLOCK, 0, st>>>(offs, d, xs, act, ys, n); break;
-    case 6: spmv_dia_lanes_kernel<6><<<blocks, REPRO_BLOCK, 0, st>>>(offs, d, xs, act, ys, n); break;
-    case 7: spmv_dia_lanes_kernel<7><<<blocks, REPRO_BLOCK, 0, st>>>(offs, d, xs, act, ys, n); break;
-    case 8: spmv_dia_lanes_kernel<8><<<blocks, REPRO_BLOCK, 0, st>>>(offs, d, xs, act, ys, n); break;
+    REPRO_DIA_LANES(1)
+    REPRO_DIA_LANES(2)
+    REPRO_DIA_LANES(3)
+    REPRO_DIA_LANES(4)
+    REPRO_DIA_LANES(5)
+    REPRO_DIA_LANES(6)
+    REPRO_DIA_LANES(7)
+    REPRO_DIA_LANES(8)
   }
-  return (int)cudaGetLastError();
+#undef REPRO_DIA_LANES
+  return (int)err;
 }
+
+extern "C" {
+
+int spmv_dia_lanes_f32(const int* offsets, int k, int lanes, const void* data, const void* x,
+                       const void* active, void* y, int64_t n, void* stream) {
+  return spmv_dia_lanes<float>(offsets, k, lanes, data, x, active, y, n, stream);
+}
+
+int spmv_dia_lanes_bf16_f32(const int* offsets, int k, int lanes, const void* data,
+                            const void* x, const void* active, void* y, int64_t n,
+                            void* stream) {
+  return spmv_dia_lanes<__nv_bfloat16>(offsets, k, lanes, data, x, active, y, n, stream);
+}
+
+}  // extern "C"

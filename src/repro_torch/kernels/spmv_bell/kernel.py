@@ -48,19 +48,21 @@ _LANES_ARGTYPES = [
     ctypes.c_void_p,  # y (lanes, n)
     ctypes.c_int64,   # n
     ctypes.c_int,     # R
+    ctypes.c_int,     # column span (sizes the window of x)
     ctypes.c_void_p,  # stream
 ]
 
 
 def launch_lanes(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, active,
-                 y: torch.Tensor, lanes: int, stream: int) -> None:
+                 y: torch.Tensor, lanes: int, span: int, stream: int) -> None:
     """The f32 entry on ``lanes`` rows of n, lanes <= 8 (one 1-D vector is
-    one lane); checked by the wrapper."""
+    one lane); ``span`` is the operator's ``column_span``. Checked by the
+    wrapper."""
     fn = library().spmv_bell_lanes_f32
     fn.argtypes = _LANES_ARGTYPES
     fn.restype = ctypes.c_int
     err = fn(lanes, cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
              None if active is None else active.data_ptr(), y.data_ptr(), cols.shape[0],
-             cols.shape[1], stream)
+             cols.shape[1], min(span, 2**31 - 1), stream)
     if err != 0:
         raise RuntimeError(f"spmv_bell kernel launch failed: CUDA error {err}")

@@ -53,7 +53,7 @@ def spmv_bell_cuda(A: BellMatrix, x: torch.Tensor, active=None) -> torch.Tensor:
     y = torch.empty_like(x)
     if n:
         if x.dtype == torch.float32:  # the lane entry, one lane
-            kernel.launch_lanes(A.cols, A.vals, x, active, y, 1, stream_ptr(x.device))
+            kernel.launch_lanes(A.cols, A.vals, x, active, y, 1, 0, stream_ptr(x.device))
         else:
             kernel.launch(A.cols, A.vals, x, active, y, stream_ptr(x.device))
         count_launch(spmv_bell_cuda)
@@ -67,9 +67,12 @@ def spmv_bell_batched(A: BellMatrix, x: torch.Tensor, active=None) -> torch.Tens
     """Y[l] = A @ x[l] for k right-hand sides, x of shape (k, n), float32
     (the TPU kernel under ``jax.vmap``). ``cols`` and ``vals`` are read
     once for up to 8 lanes; a larger k runs in chunks of 8, one launch
-    each. ``active`` is None or a (k,) bool device tensor; a lane whose
-    flag is False gathers nothing and gets 0. On a CPU tensor this runs
-    the plain version; on a CUDA tensor it launches the kernel or raises.
+    each. The kernel keeps a window of x around each tile of rows in
+    shared memory, sized by ``A.column_span`` (computed on first use);
+    columns outside it are gathered from x, with the same result.
+    ``active`` is None or a (k,) bool device tensor; a lane whose flag is
+    False gathers nothing and gets 0. On a CPU tensor this runs the plain
+    version; on a CUDA tensor it launches the kernel or raises.
     ``spmv_bell_batched.launches`` counts kernel launches.
     """
     if x.device.type == "cpu":
@@ -100,7 +103,7 @@ def spmv_bell_batched(A: BellMatrix, x: torch.Tensor, active=None) -> torch.Tens
         for lo in range(0, k, LANE_CHUNK):
             sl = slice(lo, min(k, lo + LANE_CHUNK))
             kernel.launch_lanes(A.cols, A.vals, x[sl], None if active is None else active[sl],
-                                y[sl], sl.stop - sl.start, stream_ptr(x.device))
+                                y[sl], sl.stop - sl.start, A.column_span, stream_ptr(x.device))
             count_launch(spmv_bell_batched)
     return y
 

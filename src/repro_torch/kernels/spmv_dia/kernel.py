@@ -54,11 +54,16 @@ _LANES_ARGTYPES = [
 ]
 
 
+# the lane entries: f32 or bf16 data and x, f32 sums and y
+_LANES_ENTRIES = {torch.float32: "spmv_dia_lanes_f32", torch.bfloat16: "spmv_dia_lanes_bf16_f32"}
+
+
 def launch_lanes(offsets: tuple[int, ...], data: torch.Tensor, x: torch.Tensor, active,
                  y: torch.Tensor, lanes: int, n: int, stream: int) -> None:
-    """The f32 entry on ``lanes`` rows of n, lanes <= 8 (one 1-D vector is
-    one lane); checked by the wrapper."""
-    fn = library().spmv_dia_lanes_f32
+    """The lane entry of x's dtype (f32 or bf16; y is f32) on ``lanes``
+    rows of n, lanes <= 8 (one 1-D vector is one lane); checked by the
+    wrapper."""
+    fn = getattr(library(), _LANES_ENTRIES[x.dtype])
     fn.argtypes = _LANES_ARGTYPES
     fn.restype = ctypes.c_int
     offs = (ctypes.c_int * len(offsets))(*offsets)

@@ -7,12 +7,12 @@ import torch
 
 from ..common import LANE_CHUNK, MAX_DIAGS, check_lane_active, count_launch, stream_ptr
 from . import kernel
-from .ref import spmv_dia_batched_ref, spmv_dia_ref
+from .ref import spmv_dia_batched_bf16_ref, spmv_dia_batched_ref, spmv_dia_ref
 
 if TYPE_CHECKING:  # the sparse package imports the kernels package
     from ...sparse.formats import DIAMatrix
 
-__all__ = ["spmv_dia_cuda", "spmv_dia_batched"]
+__all__ = ["spmv_dia_cuda", "spmv_dia_batched", "spmv_dia_batched_bf16"]
 
 
 def spmv_dia_cuda(A: DIAMatrix, x: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -67,16 +67,40 @@ def spmv_dia_batched(A: DIAMatrix, x: torch.Tensor, active=None) -> torch.Tensor
     """
     if x.device.type == "cpu":
         return spmv_dia_batched_ref(A.data, A.offsets, x, active)
+    return _launch_lanes(spmv_dia_batched, A, x, active, torch.float32)
+
+
+spmv_dia_batched.launches = 0
+
+
+def spmv_dia_batched_bf16(A: DIAMatrix, x: torch.Tensor, active=None) -> torch.Tensor:
+    """The mixed-precision SPMV for k right-hand sides: bf16 ``A.data`` and
+    x of shape (k, n), every product summed in f32, Y float32 (the "bf16"
+    engine's ``spmv_dia_bf16`` under ``jax.vmap``). Lane l is bit for bit
+    ``spmv_dia_cuda(A, x[l], out_dtype=torch.float32)``. ``active`` as in
+    :func:`spmv_dia_batched`. On a CPU tensor this runs the plain version;
+    on a CUDA tensor it launches the kernel or raises.
+    ``spmv_dia_batched_bf16.launches`` counts kernel launches.
+    """
+    if x.device.type == "cpu":
+        return spmv_dia_batched_bf16_ref(A.data, A.offsets, x, active)
+    return _launch_lanes(spmv_dia_batched_bf16, A, x, active, torch.bfloat16)
+
+
+spmv_dia_batched_bf16.launches = 0
+
+
+def _launch_lanes(wrapper, A: DIAMatrix, x: torch.Tensor, active, dtype) -> torch.Tensor:
+    name = wrapper.__name__
     if x.device.type != "cuda":
-        raise ValueError(f"spmv_dia_batched takes CPU or CUDA tensors, got {x.device}")
+        raise ValueError(f"{name} takes CPU or CUDA tensors, got {x.device}")
     if x.dim() != 2:
-        raise ValueError(f"spmv_dia_batched takes (k, n) vectors, got shape {tuple(x.shape)}")
+        raise ValueError(f"{name} takes (k, n) vectors, got shape {tuple(x.shape)}")
     k, n = x.shape
     if A.data.device != x.device:
         raise ValueError(f"data on {A.data.device}, x on {x.device}")
-    if A.data.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError(f"the batched spmv_dia kernel takes f32 data and x, got data "
-                        f"{A.data.dtype}, x {x.dtype}")
+    if A.data.dtype != dtype or x.dtype != dtype:
+        raise TypeError(f"{name} takes {dtype} data and x, got data {A.data.dtype}, x {x.dtype}")
     if A.data.shape != (len(A.offsets), n):
         raise ValueError(f"shapes: data {tuple(A.data.shape)}, x {tuple(x.shape)}")
     if not (A.data.is_contiguous() and x.is_contiguous()):
@@ -84,14 +108,11 @@ def spmv_dia_batched(A: DIAMatrix, x: torch.Tensor, active=None) -> torch.Tensor
     if len(A.offsets) > MAX_DIAGS:
         raise ValueError(f"the kernel takes at most {MAX_DIAGS} diagonals, got {len(A.offsets)}")
     active = check_lane_active(active, k, x.device)
-    y = torch.empty_like(x)
+    y = torch.empty(k, n, dtype=torch.float32, device=x.device)
     if n:
         for lo in range(0, k, LANE_CHUNK):
             sl = slice(lo, min(k, lo + LANE_CHUNK))
             kernel.launch_lanes(A.offsets, A.data, x[sl], None if active is None else active[sl],
                                 y[sl], sl.stop - sl.start, n, stream_ptr(x.device))
-            count_launch(spmv_dia_batched)
+            count_launch(wrapper)
     return y
-
-
-spmv_dia_batched.launches = 0

@@ -37,3 +37,12 @@ def spmv_dia_batched_ref(data: torch.Tensor, offsets: tuple[int, ...], x: torch.
     a lane whose ``active`` flag is False gets 0, as the kernel writes."""
     y = spmv_dia_ref(data, offsets, x)
     return y if active is None else torch.where(active[:, None], y, torch.zeros_like(y))
+
+
+def spmv_dia_batched_bf16_ref(data: torch.Tensor, offsets: tuple[int, ...], x: torch.Tensor,
+                              active: torch.Tensor | None = None) -> torch.Tensor:
+    """The lane-batched mixed-precision SPMV: bf16 data and x of shape
+    (k, n), every product summed in f32, y float32; a lane whose
+    ``active`` flag is False gets 0, as the kernel writes."""
+    y = spmv_dia_ref(data, offsets, x, torch.float32)
+    return y if active is None else torch.where(active[:, None], y, torch.zeros_like(y))

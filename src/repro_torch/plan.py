@@ -151,7 +151,10 @@ def _solve_chronopoulos(A, b, *, M, x0, atol, rtol, maxiter, engine):
 
 
 def _solve_pipecg(A, b, *, M, x0, atol, rtol, maxiter, engine,
-                  replace_every=None, spmv_engine=None, core=None):
+                  replace_every=None, spmv_engine=None, tile=None, core=None):
+    # ``tile`` is the JAX package's row tile of its TPU kernels; the CUDA
+    # kernels have none, so it is recorded (describe(), config(), the plan
+    # cache key) and changes no computation
     return pipecg(A, b, M=M, x0=x0, atol=atol, rtol=rtol, maxiter=maxiter, engine=engine,
                   spmv_engine=spmv_engine, replace_every=replace_every, core=core)
 
@@ -361,8 +364,11 @@ def plan(A, method: str = "pipecg", engine: str = "auto", M="jacobi",
          **kwargs) -> SolverPlan:
     """Build a reusable :class:`SolverPlan` for ``A`` (see module docstring).
 
-    ``replace_every``/``spmv_engine`` are pipecg's keyword arguments; a
-    method given an argument it does not take raises TypeError.
+    ``replace_every``/``spmv_engine``/``tile`` are pipecg's keyword
+    arguments; a method given an argument it does not take raises
+    TypeError. ``tile`` is the JAX package's row tile of its TPU kernels:
+    the CUDA kernels have no tile, so the value changes no computation; a
+    plan records it in ``describe()``, ``config()`` and its cache key.
     ``atol``/``rtol`` are the plan's defaults; ``plan.solve(b, atol=...)``
     overrides them per call.
     """

@@ -43,6 +43,8 @@ __all__ = [
     "csr_device_from_host",
 ]
 
+_SPAN_CHUNK = 1 << 20  # rows a column_span pass reads at once
+
 
 @dataclass(frozen=True)
 class DIAMatrix:
@@ -132,6 +134,20 @@ class BellMatrix:
         """Whether every column index lies in [0, n): the CUDA kernel
         gathers x by them (checked once per operator)."""
         return bool(((self.cols >= 0) & (self.cols < self.n)).all())
+
+    @cached_property
+    def column_span(self) -> int:
+        """max |col - row| over the nonzero slots (0 for none): the lane
+        kernel sizes its window of x by it (computed once per operator, a
+        chunk of rows at a time; not part of the operator's identity)."""
+        span = 0
+        for lo in range(0, self.n, _SPAN_CHUNK):
+            cols = self.cols[lo:lo + _SPAN_CHUNK]
+            rows = torch.arange(lo, lo + cols.shape[0], dtype=cols.dtype, device=cols.device)
+            dist = (cols - rows[:, None]).abs() * (self.vals[lo:lo + _SPAN_CHUNK] != 0)
+            if dist.numel():
+                span = max(span, int(dist.max()))
+        return span
 
     def with_dtype(self, dtype: torch.dtype) -> "BellMatrix":
         return BellMatrix(self.cols, self.vals.to(dtype), self.n)

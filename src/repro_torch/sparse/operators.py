@@ -94,18 +94,19 @@ class CountingOperator:
 
         C = CountingOperator(A)
         res = repro_torch.plan(C, method="pipecg", M="jacobi").solve(b)
-        C.calls                    # matvecs this solve performed
-        C.applications(res)        # the same, from the result alone
+        C.calls                    # matvec calls this solve made
+        C.applications(res)        # operator applications it needed
 
     The port runs eagerly, so every application is a call: ``calls``
-    counts each one (a batched solve's application of all k lanes is one
-    call); the JAX package's ``trace_calls`` (call sites seen under a
-    trace) has no counterpart. ``applications(result)`` gives the
-    applications one solve needs from its result: three set-up matvecs
-    (pipecg: A x0, A u, A m) once per solve plus one per step of the loop
-    (``result.steps``, which counts the no-op steps up to the host's poll
-    as the loop runs them). The fingerprint of a wrapper is process-local
-    (``id:``), so it pools but does not warm-start across processes.
+    counts each one as it runs, three set-up matvecs (pipecg: A x0, A u,
+    A m) plus one per step of the loop (``result.steps``, which counts the
+    no-op steps up to the host's poll), and a batched solve's application
+    of all k lanes is one call. The JAX package's ``trace_calls`` (call
+    sites seen under a trace) has no counterpart. ``applications(result)``
+    is the JAX package's per-solve count: the set-up matvecs once per
+    right-hand side plus one per iteration of each. The fingerprint of a
+    wrapper is process-local (``id:``), so it pools but does not
+    warm-start across processes.
     """
 
     def __init__(self, base):
@@ -142,10 +143,14 @@ class CountingOperator:
         self.calls = 0
 
     def applications(self, result, setup: int = 3) -> int:
-        """Matvecs one solve performed: ``setup`` (pipecg 3, chronopoulos 2,
-        pcg 1) plus one per loop step. A batched result counts one application of all its
-        lanes per matvec, as :attr:`calls` does."""
-        return int(setup + result.steps)
+        """Operator applications one solve needed, as the JAX package counts
+        them: ``setup`` (pipecg 3, chronopoulos 2, pcg 1) once per
+        right-hand side plus one per iteration of each; a batched result
+        multiplies ``setup`` by its k lanes and sums their iterations. The
+        no-op steps up to the host's poll are not applications
+        (:attr:`calls` counts them)."""
+        iters = torch.as_tensor(result.iterations).reshape(-1)
+        return int(setup * max(iters.numel(), 1) + int(iters.sum()))
 
 
 def as_operator(A, n: int | None = None, dtype=None, diag=None, *, device=None):

@@ -31,10 +31,9 @@ work once the solve has converged; every other engine ignores the flag.
 ``x`` may be ``(k, n)``, k right-hand sides (the JAX package's
 ``jax.vmap`` of the SPMV): the plain engines broadcast over the lane
 axis, the CUDA engines run their kernels' lane-batched entries (which
-read the operator once for up to 8 lanes and take a ``(k,)`` flag), and
-a matrix-free operator's ``matvec`` receives the ``(k, n)`` tensor.
-The bf16 engine has no lane-batched kernel and refuses ``(k, n)`` on
-the card.
+read the operator once for up to 8 lanes and take a ``(k,)`` flag; the
+bf16 engine runs the bf16 lane entry), and a matrix-free operator's
+``matvec`` receives the ``(k, n)`` tensor.
 """
 from __future__ import annotations
 
@@ -81,11 +80,10 @@ def spmv_dia_bf16(A: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     A16 = A if A.dtype == torch.bfloat16 else A.with_dtype(torch.bfloat16)
     x16 = x.to(torch.bfloat16)
     if x.device.type == "cuda":
-        if x.dim() != 1:
-            raise ValueError("the bf16 SPMV engine has no lane-batched kernel; solve a "
-                             "batch with spmv_engine='cuda' or 'auto'")
-        from ..kernels.spmv_dia import spmv_dia_cuda
+        from ..kernels.spmv_dia import spmv_dia_batched_bf16, spmv_dia_cuda
 
+        if x.dim() == 2:  # k lanes: each lane bit for bit the 1-D kernel's
+            return spmv_dia_batched_bf16(A16, x16).to(x.dtype)
         return spmv_dia_cuda(A16, x16, out_dtype=acc).to(x.dtype)
     return spmv_dia_ref(A16.data, A.offsets, x16, out_dtype=acc).to(x.dtype)
 

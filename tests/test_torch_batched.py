@@ -40,6 +40,8 @@ from repro_torch.kernels import (
     spmv_bell_batched_ref,
     spmv_bell_ref,
     spmv_dia_batched,
+    spmv_dia_batched_bf16,
+    spmv_dia_batched_bf16_ref,
     spmv_dia_batched_ref,
     spmv_dia_ref,
 )
@@ -272,3 +274,29 @@ def _check_fused_iter():
 def test_batched_plain_versions(kernel):
     {"spmv_dia": _check_dia, "spmv_bell": _check_bell, "fused_vma": _check_fused_vma,
      "fused_iter": _check_fused_iter}[kernel]()
+
+
+def test_bf16_lane_spmv_matches_jax():
+    """The bf16 lane SPMV (bf16 data and x, f32 sums, f32 y) against
+    ``jax.vmap`` of the JAX package's ``spmv_dia_bf16`` on the same numpy
+    inputs: both sum the same exact bf16 products in f32, in diagonal order
+    (rtol 1e-6); lane by lane it is the 1-D plain version's bits, and the
+    engine takes (k, n) on the CPU as on the card."""
+    J = jsp.poisson27(7)
+    A = convert.dia_from_arrays(np.asarray(J.data), J.offsets, J.n, device="cpu")
+    A16 = A.with_dtype(torch.bfloat16)
+    X = _rand((K, A.n), 3)
+    X16 = _t(X).to(torch.bfloat16)
+    got = spmv_dia_batched_bf16_ref(A16.data, A.offsets, X16)
+    assert got.dtype == torch.float32
+    want = jax.vmap(lambda x: jsp.spmv_dia_bf16(J, x))(jnp.asarray(X16.float().numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)
+    for lane in range(K):
+        assert torch.equal(got[lane], spmv_dia_ref(A16.data, A.offsets, X16[lane],
+                                                   torch.float32))
+    act = torch.tensor([True, False, True])
+    masked = spmv_dia_batched_bf16(A16, X16, act)  # the wrapper on the CPU: the plain version
+    assert torch.equal(masked[0], got[0]) and not masked[1].any()
+    np.testing.assert_allclose(tsp.spmv(A, _t(X), engine="bf16").numpy(), np.asarray(want),
+                               rtol=1e-6, atol=0)
+

@@ -19,6 +19,8 @@ import repro.sparse as jsp
 from repro_torch import convert
 from repro_torch import sparse as tsp
 from repro_torch.kernels import fused_dots, fused_dots_ref, spmv_bell_cuda, spmv_bell_ref
+from repro_torch.plan import operator_fingerprint
+from repro_torch.sparse import formats
 
 VEC = dict(rtol=1e-5, atol=1e-5)
 MATRICES = [("bcsstk15", 0.05), ("Queen_4147", 0.002)]
@@ -73,6 +75,23 @@ def test_conversions_equal_jax_arrays(name, scale):
         assert got.dtype == want.dtype and np.array_equal(got, want), field
     assert np.array_equal(tdev.diagonal().numpy(), np.asarray(jdev.diagonal()))
     assert np.array_equal(tb.diagonal().numpy(), np.asarray(jb.diagonal()))
+    # BellMatrix.column_span (the lane kernel's window size) is the largest
+    # |col - row| over the nonzero slots: the DIA form's widest offset,
+    # padding slots (column 0, value 0) left out, the same when computed a
+    # chunk of rows at a time, and not part of the operator's identity
+    B = tsp.bell_from_csr(tc, device="cpu")
+    before = operator_fingerprint(B)
+    assert B.column_span == max(abs(o) for o in A.offsets) == A.bandwidth
+    assert operator_fingerprint(B) == before
+    chunked = tsp.BellMatrix(B.cols, B.vals, B.n)
+    old = formats._SPAN_CHUNK
+    formats._SPAN_CHUNK = 7
+    try:
+        assert chunked.column_span == B.column_span
+    finally:
+        formats._SPAN_CHUNK = old
+    empty = tsp.BellMatrix(torch.zeros(4, 2, dtype=torch.int32), torch.zeros(4, 2), 4)
+    assert empty.column_span == 0  # padding only
     dense = jc.to_dense()[:90, :90].copy()
     dense[5, :] = 0.0  # an empty row
     jc, tc = jsp.csr_from_dense(dense), tsp.csr_from_dense(dense)
@@ -185,3 +204,4 @@ def test_array_converters_round_trip():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tsp.bell_from_csr(tc)  # the converters default to CUDA, as every entry point
+

@@ -24,12 +24,21 @@ from repro_torch.kernels import (
     spmv_bell_batched_ref,
     spmv_bell_cuda,
     spmv_dia_batched,
+    spmv_dia_batched_bf16,
     spmv_dia_batched_ref,
     spmv_dia_cuda,
 )
 from repro_torch.kernels.common import BLOCK, ceil_to
 from repro_torch.serve import SolverServer
-from repro_torch.sparse import DIAMatrix, bell_from_csr, csr_from_dia, poisson27, table1_matrix
+from repro_torch.sparse import (
+    DIAMatrix,
+    bell_from_csr,
+    csr_device_from_host,
+    csr_from_dia,
+    poisson27,
+    synthetic_spd_dia,
+    table1_matrix,
+)
 
 VEC = dict(rtol=1e-5, atol=1e-5)
 LANES = [1, 8, 11]  # 11: two launches (8 + 3); lane 1 of 8 and 11 inactive
@@ -85,17 +94,26 @@ def test_spmv_dia_batched(cuda, k):
 
 @pytest.mark.parametrize("k", LANES)
 def test_spmv_bell_batched(cuda, k):
-    A = bell_from_csr(csr_from_dia(table1_matrix("bcsstk15", device=cuda)), device=cuda)
-    X = _lanes(k, A.n, 1, cuda)
-    act = _flags(k, cuda)
-    before = spmv_bell_batched.launches
-    Y = spmv_bell_batched(A, X, act)
-    torch.cuda.synchronize()
-    assert spmv_bell_batched.launches == before + -(-k // 8)
-    torch.testing.assert_close(Y, spmv_bell_batched_ref(A.cols, A.vals, X, act), **VEC)
-    for lane in range(k):
-        want = spmv_bell_cuda(A, X[lane]) if act[lane] else torch.zeros(A.n, device=cuda)
-        torch.testing.assert_close(Y[lane], want, **VEC)
+    """bcsstk15, and a band wider than the lane kernel's window (the slots
+    outside it gathered from X, every lane the single kernel's bits)."""
+    n = 40_000
+    wide = bell_from_csr(csr_from_dia(synthetic_spd_dia(n, nnz_per_row=27, bandwidth=n // 4,
+                                                        seed=3, device=cuda)), device=cuda)
+    assert wide.column_span > 2_000  # far beyond the window's 256-column halves
+    for A in (bell_from_csr(csr_from_dia(table1_matrix("bcsstk15", device=cuda)), device=cuda),
+              wide):
+        X = _lanes(k, A.n, 1, cuda)
+        act = _flags(k, cuda)
+        before = spmv_bell_batched.launches
+        Y = spmv_bell_batched(A, X, act)
+        torch.cuda.synchronize()
+        assert spmv_bell_batched.launches == before + -(-k // 8)
+        torch.testing.assert_close(Y, spmv_bell_batched_ref(A.cols, A.vals, X, act), **VEC)
+        for lane in range(k):
+            want = spmv_bell_cuda(A, X[lane]) if act[lane] else torch.zeros(A.n, device=cuda)
+            torch.testing.assert_close(Y[lane], want, **VEC)
+            if A is wide:
+                assert torch.equal(Y[lane], want), lane
 
 
 @pytest.mark.parametrize("k", LANES)
@@ -164,8 +182,29 @@ def test_fused_iter_batched(cuda, k):
 
 
 def _counters():
-    return (spmv_dia_cuda, spmv_dia_batched, fused_iter_step, fused_iter_batched,
-            fused_vma_dots, fused_vma_dots_batched, spmv_bell_cuda, spmv_bell_batched)
+    return (spmv_dia_cuda, spmv_dia_batched, spmv_dia_batched_bf16, fused_iter_step,
+            fused_iter_batched, fused_vma_dots, fused_vma_dots_batched, spmv_bell_cuda,
+            spmv_bell_batched)
+
+
+def _bucket_equals_solve(p, b, launched_want):
+    """A bucket of [b, 2b, 0, -b, 0.5b] through ``p.solve_batched``: the
+    batched kernels alone launch, and each lane has ``p.solve``'s
+    iterations and x within 1e-5 (PERF.md's serving contract)."""
+    B = torch.stack([b, 2 * b, torch.zeros_like(b), -b, 0.5 * b])
+    singles = [p.solve(x) for x in B]
+    for f in _counters():
+        f.launches = 0
+    res = p.solve_batched(B)
+    torch.cuda.synchronize()
+    launched = {f.__name__ for f in _counters() if f.launches}
+    assert launched == launched_want, launched
+    assert res.iterations.tolist() == [int(s.iterations) for s in singles]
+    for lane, s in enumerate(singles):
+        assert bool(res.converged[lane]) == bool(s.converged)
+        torch.testing.assert_close(res.x[lane], s.x, rtol=1e-5,
+                                   atol=1e-5 * float(s.x.abs().max()))
+    return res, singles
 
 
 def test_solve_batched_launches_the_batched_kernels(cuda):
@@ -190,6 +229,26 @@ def test_solve_batched_launches_the_batched_kernels(cuda):
         for lane, s in enumerate(singles):
             torch.testing.assert_close(res.x[lane], s.x, rtol=1e-4, atol=1e-5)
         assert p.trace_count == 2
+    # the "bf16" engine's bucket runs the bf16 lane SPMV (its init SPMV under
+    # the fused_iter core; the f32 one replaces the residual every 3
+    # iterations), each lane converged and plan.solve's bits
+    b = D.matvec(torch.full((D.n,), D.n ** -0.5, device=cuda))
+    p = repro_torch.plan(D, method="pipecg", spmv_engine="bf16", replace_every=3, atol=0.0,
+                         rtol=1e-2, maxiter=500)
+    res, singles = _bucket_equals_solve(p, b, {"spmv_dia_batched_bf16", "spmv_dia_batched",
+                                               "fused_iter_batched"})
+    for lane, s in enumerate(singles):
+        assert bool(s.converged) and torch.equal(res.x[lane], s.x), lane
+    # a CSR bucket (one segment sum over the (nnz, k) products) and a dense
+    # one (x @ A.mT, a GEMM where the single solve runs a GEMV)
+    D10 = poisson27(10, device=cuda)
+    host = csr_from_dia(D10)
+    b = D10.matvec(torch.full((D10.n,), D10.n ** -0.5, device=cuda))
+    for A in (csr_device_from_host(host, device=cuda),
+              torch.from_numpy(host.to_dense()).to(cuda)):
+        p = repro_torch.plan(A, method="pipecg", atol=0.0, rtol=1e-3, maxiter=500)
+        _, singles = _bucket_equals_solve(p, b, {"fused_vma_dots_batched"})
+        assert all(bool(s.converged) for s in singles), type(A).__name__
 
 
 def test_server_on_the_card(cuda):

@@ -88,9 +88,59 @@ def test_describe_keeps_jax_keys_and_names_the_core():
     with pytest.raises(ValueError, match="not ported"):
         repro_torch.plan(A, method="h3")  # the distributed methods wait for their slice
     with pytest.raises(TypeError, match="does not accept"):
-        repro_torch.plan(A, tile=256)
+        repro_torch.plan(A, method="pcg", tile=256)  # tile is pipecg's only
     with pytest.raises(ValueError, match="unknown iteration engine"):
         repro_torch.plan(A, engine="pallas").solve(torch.ones(A.n))
+
+
+def test_tile_is_recorded_like_jax():
+    """``tile`` (the JAX package's TPU row tile) is taken for pipecg and
+    recorded; the CUDA kernels have no tile, so it changes no result."""
+    J, A = operator(5)
+    b = torch.from_numpy(rhs(J, "smooth"))
+    p = repro_torch.plan(A, method="pipecg", M="jacobi", atol=1e-6, tile=512)
+    assert p.describe()["tile"] == 512 == repro.plan(J, method="pipecg", tile=512).describe()["tile"]
+    assert p.config()["tile"] == 512 and "tile" not in repro_torch.plan(A).describe()
+    plain = repro_torch.plan(A, method="pipecg", M="jacobi", atol=1e-6)
+    assert torch.equal(p.solve(b).x, plain.solve(b).x)
+    for method in ("pcg", "chronopoulos"):
+        with pytest.raises(TypeError):
+            repro.plan(J, method=method, tile=512)
+        with pytest.raises(TypeError, match="does not accept"):
+            repro_torch.plan(A, method=method, tile=512)
+    repro_torch.clear_plan_cache()
+    first = repro_torch.get_plan(A, tile=256)
+    assert repro_torch.get_plan(A, tile=256) is first
+    assert repro_torch.get_plan(A, tile=512) is not first
+    assert repro_torch.plan_cache_stats()["misses"] == 2
+
+
+def test_counting_operator_applications_match_jax():
+    """``CountingOperator.applications`` is the JAX package's count: set-up
+    matvecs once per rhs plus each rhs's iterations; ``calls`` is what the
+    eager port ran (set-up plus every loop step, a batch's matvec one call)."""
+    from repro.sparse import CountingOperator as JaxCounting
+    from repro_torch.sparse import CountingOperator
+
+    J, A = operator(5)
+    b = rhs(J, "smooth")
+    B = np.stack([b, 2.0 * b, -0.5 * b, 1e-3 * b]).astype(np.float32)
+    kw = dict(method="pipecg", M="jacobi", atol=1e-5, maxiter=100)
+    JC, C = JaxCounting(J), CountingOperator(A)
+    jp, p = repro.plan(JC, engine="jnp", **kw), repro_torch.plan(C, engine="torch", **kw)
+    jres, res = jp.solve(jnp.asarray(b)), p.solve(torch.from_numpy(b))
+    assert int(res.iterations) == int(jres.iterations)
+    assert C.applications(res) == JC.applications(jres) == 3 + int(res.iterations)
+    assert C.calls == 3 + res.steps
+    # the JAX count reads the call sites of one traced program: a fresh
+    # operator traces the batched program alone
+    JC = JaxCounting(J)
+    C.reset()
+    jres = repro.plan(JC, engine="jnp", **kw).solve_batched(jnp.asarray(B))
+    res = p.solve_batched(torch.from_numpy(B))
+    assert res.iterations.tolist() == np.asarray(jres.iterations).tolist()
+    assert C.applications(res) == JC.applications(jres) == 3 * 4 + int(res.iterations.sum())
+    assert C.calls == 3 + res.steps
 
 
 def test_one_shot_solve_reuses_cached_plan():

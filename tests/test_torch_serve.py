@@ -285,13 +285,17 @@ def test_counting_operator_counts():
     C.reset()
     p = repro_torch.plan(C, method="pipecg", engine="torch", M="jacobi", atol=1e-5, maxiter=100)
     res = p.solve(b)
-    assert bool(res.converged) and C.calls == C.applications(res) == 3 + res.steps
+    # calls: set-up plus every loop step as run; applications: the JAX
+    # package's count, set-up plus the iterations
+    assert bool(res.converged) and C.calls == 3 + res.steps
+    assert C.applications(res) == 3 + int(res.iterations) <= C.calls
     C.reset()
     resb = p.solve_batched(torch.stack([b, 2.0 * b]))  # one call applies every lane
-    assert C.calls == C.applications(resb)
+    assert C.calls == 3 + resb.steps
+    assert C.applications(resb) == 2 * 3 + int(resb.iterations.sum())
     C.reset()
     res = repro_torch.plan(C, method="pcg", engine="torch", atol=1e-5, maxiter=100).solve(b)
-    assert C.calls == C.applications(res, setup=1)
+    assert C.calls == 1 + res.steps and C.applications(res, setup=1) == 1 + int(res.iterations)
 
 
 def test_engine_bucket_metrics():
