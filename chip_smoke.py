@@ -10,9 +10,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a.
 2. the DIA kernels against their plain PyTorch versions on the card, at
    the DIA path's shape (poisson125(128): N = 2,097,152, 125 diagonals)
-   and at a ragged poisson27(37) (N = 50,653), padded and unpadded;
-   kernel and plain-version times (median of CUDA-event timings), the
-   bytes bound, and for spmv_dia a torch.sparse CSR matvec as a yardstick.
+   and at a ragged poisson27(37) (N = 50,653), padded and unpadded, with
+   fused_iter also on a bf16 band (the JAX package's make_fused_iter_core(A,
+   data_dtype=bfloat16)); kernel and plain-version times (median of
+   CUDA-event timings), the bytes bound, and for spmv_dia a torch.sparse
+   CSR matvec as a yardstick.
 2b. the general-sparsity kernels: spmv_bell (f32 and bf16) at
    Queen_4147's Block-ELLPACK form (N = 4,147,110, R = 79, above the TPU
    kernel's 2M-row limit) and at the ragged bcsstk15 (N = 3,948), and
@@ -25,7 +27,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    atol 0, rtol 1e-3, for engine auto (-> fused_iter), cuda and torch:
    equal iteration counts, histories within rtol 1e-3, true residual
    (float64, scipy) below 1e-2, and the launch counters of each path;
-   one spmv_engine="bf16" run is reported, not asserted.
+   one spmv_engine="bf16" run is reported, not asserted; one solve through
+   ``pipecg(A, b, core=make_fused_iter_core(A, data_dtype=torch.bfloat16))``
+   is reported, its launches (2 f32 SPMVs at init, the bf16-band kernel
+   every step) asserted.
 3b. solves of Queen_4147 (b = A (1/sqrt(N)), atol 0, rtol 1e-3): pipecg
    on the Bell form (auto -> cuda core + spmv_bell, and torch), the CSR
    form (auto -> segsum) and the DIA form (auto -> fused_iter), pcg and
@@ -59,22 +64,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ms per solve to rtol 1e-3 on each path, median of 5.
 6. the serving tier at full width, after 4b and before 5, on the
    poisson125(128) DIA operator and Queen_4147's Bell form built above:
-   (a) the five lane-batched entries (fused_iter at poisson125, spmv_dia
-   at poisson125 in f32 and in bf16 with f32 sums, fused_vma at Queen's
-   length, spmv_bell at Queen and at a 200,000-row Bell operator whose
-   band is far wider than the kernel's window) at k = 1, 3 and 8 against
+   (a) the lane-batched entries (fused_iter at poisson125 with an f32 and
+   a bf16 band, spmv_dia in f32 and in bf16 with f32 sums at poisson125,
+   at a 200,003-row operator with isolated offsets over a span far wider
+   than a window and at poisson125(144), whose z-planes take two windows
+   at 8 f32 lanes, fused_vma at Queen's length, spmv_bell at Queen and at a
+   200,000-row Bell operator whose band is far wider than the kernel's
+   window) at k = 1, 3 and 8 against
    their plain versions and, lane by lane, against the single-rhs kernel
    (the bf16 one: spmv_dia_cuda with an f32 output), with one inactive
    lane checked bit for bit untouched (an SPMV gives it 0); the script
    prints whether every active lane equals the single kernel bit for bit;
-   times at k = 8 (spmv_bell and fused_iter lanes also at k = 2 and 4)
+   times at k = 8 (the spmv_bell, fused_iter and spmv_dia lanes and the
+   bf16-band fused_iter also at k = 2 and 4)
    beside the plain versions, cuSPARSE's SpMM (torch.sparse CSR @ dense,
    a yardstick the port never calls) and the bytes bound; (b)
    ``plan.solve_batched`` at a fixed 200 iterations (atol = rtol = 0) for
    k = 1, 2, 4, 8 on both operators (auto -> batched fused_iter; auto ->
    batched spmv_bell + fused_vma; no single-rhs kernel may launch), ms per
    batched iteration and per rhs-iteration beside the bound and the
-   single solve, and a bucket of 8 on a spmv_engine="bf16" plan at
+   single solve; buckets of 8 at poisson125 on the "cuda" core in f32 and
+   with spmv_engine="bf16" (one lane SPMV a step, launches asserted, ms per
+   rhs-iteration); and a bucket of 8 on a spmv_engine="bf16" plan at
    poisson125 (replace_every 5, rtol 1e-2; its init SPMV the bf16 lane
    entry), each lane converged, with plan.solve's iterations and x within
    1e-5, and the lanes freezing at more than one iteration count; (c) one
@@ -317,7 +328,8 @@ def main() -> None:
     def randn(n):
         return torch.randn(n, generator=gen, device=dev)
 
-    errs = {"spmv_dia": 0.0, "spmv_dia_bf16": 0.0, "fused_vma": 0.0, "fused_iter": 0.0}
+    errs = {"spmv_dia": 0.0, "spmv_dia_bf16": 0.0, "fused_vma": 0.0, "fused_iter": 0.0,
+            "fused_iter_bf16band": 0.0}
 
     def operator_cases(Aop):
         """(label, operator, length) — as given, and padded to the block."""
@@ -364,8 +376,17 @@ def main() -> None:
                                        (want[7] * want[6]).abs().sum(),
                                        (want[6] * want[6]).sum()]).max())
             check_dots(f"fused_iter {label}", got[9], torch.stack(list(want[9])), scale)
+            # the bf16-band instance: the same vectors, the band stored in bf16
+            want16 = fused_iter_ref(A16.data, Ak.offsets, *vecs, inv, 0.3, 0.6)
+            got16 = fused_iter_step(A16.data, Ak.offsets, *[v.clone() for v in vecs[:8]], vecs[8],
+                                    torch.empty_like(vecs[8]), inv, 0.3, 0.6)
+            for g, w in zip(got16[:9], want16[:9]):
+                errs["fused_iter_bf16band"] = max(errs["fused_iter_bf16band"], check(
+                    f"fused_iter bf16 band {label}", g, w, **VEC))
+            check_dots(f"fused_iter bf16 band {label}", got16[9], torch.stack(list(want16[9])),
+                       scale)
             if n != n_real:
-                for out in (y, y16, *got[:9]):
+                for out in (y, y16, *got[:9], *got16[:9]):
                     if out[n_real:].any():
                         fail(f"{label}: the padded tail is not exactly 0")
             sync()
@@ -392,6 +413,9 @@ def main() -> None:
                        timed(lambda: fused_iter_ref(A.data, A.offsets, *vecs[:9], inv, a_s, b_s),
                              2, 3)),
     }
+    times["fused_iter_bf16band"] = (
+        timed(lambda: fused_iter_step(A16.data, A.offsets, *vecs[:9], m_out, inv, a_s, b_s), 20),
+        timed(lambda: fused_iter_ref(A16.data, A.offsets, *vecs[:9], inv, a_s, b_s), 2, 3))
     del A16, x16
 
     # torch.sparse CSR matvec of the same operator: a yardstick the port never calls
@@ -516,6 +540,7 @@ def main() -> None:
         "spmv_dia_bf16": (k * N * 2 + N * 2 + N * 4, 2 * k * N),
         "fused_vma": (11 * N * 4 + 9 * N * 4 + 8 + 12, 23 * N),
         "fused_iter": (k * N * 4 + 10 * N * 4 + 9 * N * 4 + 8 + 12, 2 * k * N + 23 * N),
+        "fused_iter_bf16band": (k * N * 2 + 10 * N * 4 + 9 * N * 4 + 8 + 12, 2 * k * N + 23 * N),
         "spmv_bell": (QN * R * (4 + 4) + QN * 4 + QN * 4, 2 * QN * R),
         "spmv_bell_bf16": (QN * R * (4 + 2) + QN * 2 + QN * 2, 2 * QN * R),
         "fused_dots": (3 * QN * 4 + 12, 6 * QN),
@@ -839,6 +864,30 @@ def main() -> None:
         f"converged={bf16['converged']} true_rel_residual={bf16['true_residual']:.3e}")
     if bf16["launches"]["spmv_dia"] == 0:
         fail("the bf16 run launched no spmv_dia kernel")
+    # the bf16-band fused_iter core, as the JAX package's make_fused_iter_core(A,
+    # data_dtype=bfloat16): one solve through pipecg with that core (init in
+    # f32, every step the bf16-band kernel); reported, its launches asserted
+    from repro_torch.core.iteration import make_fused_iter_core
+    from repro_torch.core.pipecg import pipecg
+    from repro_torch.core.preconditioners import jacobi
+
+    core16 = make_fused_iter_core(A, data_dtype=torch.bfloat16)
+    for f in counters.values():
+        f.launches = 0
+    sync()
+    t = time.perf_counter()
+    res16 = pipecg(A, b, M=jacobi(A), atol=0.0, rtol=SOLVE_RTOL, maxiter=2000, core=core16)
+    sync()
+    band16 = dict(iterations=int(res16.iterations), steps=res16.steps,
+                  converged=bool(res16.converged), true_residual=true_residual(res16.x),
+                  wall_s=time.perf_counter() - t,
+                  launches={kn: f.launches for kn, f in counters.items()})
+    log(f"pipecg with the bf16-band fused_iter core: iterations={band16['iterations']} "
+        f"steps={band16['steps']} converged={band16['converged']} "
+        f"true_rel_residual={band16['true_residual']:.3e} launches={band16['launches']}")
+    if band16["launches"] != expect(spmv_dia=2, fused_iter=band16["steps"]):
+        fail(f"bf16-band core: launches {band16['launches']}")
+    del core16, res16
 
     # ----------------------------------------------------------------- 3b
     q64 = Q.data.double().cpu().numpy()
@@ -1005,6 +1054,17 @@ def main() -> None:
         f"(Queen_4147's {QB.column_span})")
     if WB.column_span <= 4 * 256:
         fail(f"the wide-band operator's span {WB.column_span} fits the lane kernel's window")
+    # two more operators for the DIA lane kernel: isolated far offsets (runs
+    # of 1 beside the near band's run of 13) over a span far wider than a
+    # window, at an n that is no multiple of 4 or 8 (each lane's window keeps
+    # its own shift); and poisson125(144), whose z-plane span (580) exceeds
+    # the 8-lane f32 window's 560 columns, so each z-plane takes two groups
+    DS = synthetic_spd_dia(200_003, 27, bandwidth=4_000, seed=6, device=dev)
+    P144 = poisson125(144, device=dev)
+    dia_ops = {"": (A, A16), " (isolated offsets, N=200,003)": (DS, DS.with_dtype(torch.bfloat16)),
+               " (poisson125(144))": (P144, P144.with_dtype(torch.bfloat16))}
+    log(f"DIA lane operators: N=200,003 offsets span {max(DS.offsets) - min(DS.offsets)}; "
+        f"poisson125(144) N={P144.n}")
 
     def lanes_of(k, n, seed, scale=1.0):
         g_ = torch.Generator(device=dev)
@@ -1019,9 +1079,37 @@ def main() -> None:
     def bf16_single(op, x1):  # the single-rhs bf16 kernel with the lane entry's f32 output
         return spmv_dia_cuda(op, x1, out_dtype=torch.float32)
 
+    def check_fused_iter_lanes(kn, band, k_l, act, alpha, beta, seed, tag):
+        """fused_iter_batched with an f32 or bf16 band at poisson125(128):
+        against its plain version and, lane by lane, the single instance of
+        the same band; an inactive lane left bit for bit."""
+        vecs = [lanes_of(k_l, N, seed + i) for i in range(9)]
+        want = fused_iter_batched_ref(band, A.offsets, *vecs, inv_a, alpha, beta)
+        lanes_work = [v.clone() for v in vecs[:8]]
+        m_out = torch.empty_like(vecs[8])
+        got = fused_iter_batched(band, A.offsets, *lanes_work, vecs[8], m_out, inv_a, alpha, beta,
+                                 act)
+        for lane in range(k_l):
+            if not act[lane]:
+                if not (all(torch.equal(v[lane], v0[lane]) for v, v0 in zip(lanes_work, vecs))
+                        and torch.equal(m_out[lane], vecs[8][lane])):
+                    fail(f"{kn} {tag}: inactive lane {lane} was touched")
+                continue
+            s_out = torch.empty(N, device=dev)
+            single = fused_iter_step(band, A.offsets, *[v[lane].clone() for v in vecs[:8]],
+                                     vecs[8][lane], s_out, inv_a, alpha[lane], beta[lane])
+            for g_v, w_v, s_v in zip(got[:9], want[:9], single[:9]):
+                errs[kn] = max(errs[kn], check(f"{kn} {tag} lane {lane}", g_v[lane], w_v[lane],
+                                               **VEC))
+                check(f"{kn} {tag} lane {lane} vs the single kernel", g_v[lane], s_v, **VEC)
+                bits[kn] &= bool(torch.equal(g_v[lane], s_v))
+            check_dots(f"{kn} {tag} lane {lane}", got[9][lane], want[9][lane],
+                       dots_scale(want, lane))
+            bits[kn] &= bool(torch.equal(got[9][lane], single[9]))
+
     # (a) each batched entry against its plain version and, lane by lane,
     # against the single-rhs kernel; one inactive lane left bit for bit
-    bits = {kn: True for kn in BATCHED}
+    bits = {kn: True for kn in (*BATCHED, "fused_iter_bf16band")}
     errs.update({kn: 0.0 for kn in BATCHED})
     seed = 600
     for k_l, off in ((1, None), (1, 0), (3, 1), (8, 1)):
@@ -1030,28 +1118,30 @@ def main() -> None:
             act[off] = False
         tag = f"k={k_l} inactive={off}"
         seed += 10
-        # spmv_dia at poisson125(128) in f32 and bf16 (f32 sums and y), spmv_bell
-        # at Queen_4147's Bell form and at the wide-band operator
-        for kn, fn, ref, single, op, refargs, dtype, tol in (
-                ("spmv_dia_batched", spmv_dia_batched, spmv_dia_batched_ref, spmv_dia_cuda, A,
-                 (A.data, A.offsets), torch.float32, VEC),
-                ("spmv_dia_batched_bf16", spmv_dia_batched_bf16, spmv_dia_batched_bf16_ref,
-                 bf16_single, A16, (A16.data, A.offsets), torch.bfloat16, VEC),
-                ("spmv_bell_batched", spmv_bell_batched, spmv_bell_batched_ref, spmv_bell_cuda, QB,
-                 (QB.cols, QB.vals), torch.float32, VEC),
-                ("spmv_bell_batched", spmv_bell_batched, spmv_bell_batched_ref, spmv_bell_cuda, WB,
-                 (WB.cols, WB.vals), torch.float32, VEC)):
+        # spmv_dia in f32 and bf16 (f32 sums and y) at the three DIA operators,
+        # spmv_bell at Queen_4147's Bell form and at the wide-band operator
+        cases = []
+        for op_tag, (op32, op16) in dia_ops.items():
+            cases += [("spmv_dia_batched", spmv_dia_batched, spmv_dia_batched_ref, spmv_dia_cuda,
+                       op32, (op32.data, op32.offsets), torch.float32, op_tag),
+                      ("spmv_dia_batched_bf16", spmv_dia_batched_bf16, spmv_dia_batched_bf16_ref,
+                       bf16_single, op16, (op16.data, op16.offsets), torch.bfloat16, op_tag)]
+        cases += [("spmv_bell_batched", spmv_bell_batched, spmv_bell_batched_ref, spmv_bell_cuda,
+                   QB, (QB.cols, QB.vals), torch.float32, ""),
+                  ("spmv_bell_batched", spmv_bell_batched, spmv_bell_batched_ref, spmv_bell_cuda,
+                   WB, (WB.cols, WB.vals), torch.float32, " (wide band)")]
+        for kn, fn, ref, single, op, refargs, dtype, op_tag in cases:
             X = lanes_of(k_l, op.n, seed).to(dtype)
             Y = fn(op, X, act)
-            label = f"{kn} {tag}{' (wide band)' if op is WB else ''}"
-            errs[kn] = max(errs[kn], check(label, Y, ref(*refargs, X, act), **tol))
+            label = f"{kn} {tag}{op_tag}"
+            errs[kn] = max(errs[kn], check(label, Y, ref(*refargs, X, act), **VEC))
             for lane in range(k_l):
                 if not act[lane]:
                     if Y[lane].any():
                         fail(f"{label}: inactive lane {lane} is not 0")
                     continue
                 y1 = single(op, X[lane])
-                check(f"{label} lane {lane} vs the single kernel", Y[lane], y1, **tol)
+                check(f"{label} lane {lane} vs the single kernel", Y[lane], y1, **VEC)
                 bits[kn] &= bool(torch.equal(Y[lane], y1))
             del X, Y
         # fused_vma at Queen_4147's length, fused_iter at poisson125(128)'s
@@ -1078,53 +1168,43 @@ def main() -> None:
                        dots_scale(want, lane))
             bits["fused_vma_batched"] &= bool(torch.equal(got[9][lane], single[9]))
         del vecs, want, lanes_work, got
-        vecs = [lanes_of(k_l, N, seed + 20 + i) for i in range(9)]
-        want = fused_iter_batched_ref(A.data, A.offsets, *vecs, inv_a, alpha, beta)
-        lanes_work = [v.clone() for v in vecs[:8]]
-        m_out = torch.empty_like(vecs[8])
-        got = fused_iter_batched(A.data, A.offsets, *lanes_work, vecs[8], m_out, inv_a, alpha,
-                                 beta, act)
-        for lane in range(k_l):
-            if not act[lane]:
-                if not (all(torch.equal(v[lane], v0[lane]) for v, v0 in zip(lanes_work, vecs))
-                        and torch.equal(m_out[lane], vecs[8][lane])):
-                    fail(f"fused_iter_batched {tag}: inactive lane {lane} was touched")
-                continue
-            s_out = torch.empty(N, device=dev)
-            single = fused_iter_step(A.data, A.offsets, *[v[lane].clone() for v in vecs[:8]],
-                                     vecs[8][lane], s_out, inv_a, alpha[lane], beta[lane])
-            for g_v, w_v, s_v in zip(got[:9], want[:9], single[:9]):
-                errs["fused_iter_batched"] = max(errs["fused_iter_batched"], check(
-                    f"fused_iter_batched {tag} lane {lane}", g_v[lane], w_v[lane], **VEC))
-                check(f"fused_iter_batched {tag} lane {lane} vs the single kernel", g_v[lane], s_v,
-                      **VEC)
-                bits["fused_iter_batched"] &= bool(torch.equal(g_v[lane], s_v))
-            check_dots(f"fused_iter_batched {tag} lane {lane}", got[9][lane], want[9][lane],
-                       dots_scale(want, lane))
-            bits["fused_iter_batched"] &= bool(torch.equal(got[9][lane], single[9]))
-        del vecs, want, lanes_work, got, m_out
+        for kn, band in (("fused_iter_batched", A.data), ("fused_iter_bf16band", A16.data)):
+            check_fused_iter_lanes(kn, band, k_l, act, alpha, beta, seed + 20, tag)
         sync()
         log(f"batched kernels agree with their plain versions and the single kernels ({tag})")
     log(f"batched kernels: each active lane equal bit for bit to the single-rhs kernel: {bits}")
+    for kn in ("spmv_dia_batched", "spmv_dia_batched_bf16", "fused_iter_bf16band"):
+        if not bits[kn]:  # their designs keep each row's sums in the single kernel's order
+            fail(f"{kn}: an active lane differs from the single-rhs kernel's bits")
     record["batched_bits_equal_single"] = bits
     torch.cuda.empty_cache()
 
-    del WB
+    del WB, DS, P144, dia_ops
     # times at the serving bucket (k = 8), all lanes active, beside the plain
     # versions, cuSPARSE's SpMM (torch.sparse CSR @ dense) and the bytes bound;
-    # the two kernels redesigned for Hopper (spmv_bell, fused_iter lanes)
-    # also at k = 2 and 4
+    # the lane kernels redesigned for Hopper (spmv_bell, fused_iter, spmv_dia
+    # in f32 and bf16) and the bf16-band fused_iter also at k = 2 and 4
     KB = 8
-    lane_ms = {"spmv_bell_batched": {}, "fused_iter_batched": {}}
-    for k_t in (2, 4):
-        Xt = lanes_of(k_t, QN, 690)
-        lane_ms["spmv_bell_batched"][k_t] = timed(lambda: spmv_bell_batched(QB, Xt), 10)
-        del Xt
+    lane_ms = {kn: {} for kn in ("spmv_bell_batched", "fused_iter_batched", "spmv_dia_batched",
+                                 "spmv_dia_batched_bf16", "fused_iter_bf16band")}
+    for k_t in (2, 4, KB):
+        if k_t != KB:
+            Xt = lanes_of(k_t, QN, 690)
+            lane_ms["spmv_bell_batched"][k_t] = timed(lambda: spmv_bell_batched(QB, Xt), 10)
+            Xt = lanes_of(k_t, N, 692)
+            lane_ms["spmv_dia_batched"][k_t] = timed(lambda: spmv_dia_batched(A, Xt), 10)
+            Xt = Xt.to(torch.bfloat16)
+            lane_ms["spmv_dia_batched_bf16"][k_t] = timed(lambda: spmv_dia_batched_bf16(A16, Xt),
+                                                          10)
+            del Xt
         vt = [lanes_of(k_t, N, 691 + i, 1e-3) for i in range(9)]
         at = torch.full((k_t,), 1e-3, device=dev)
         mt = torch.empty_like(vt[8])
-        lane_ms["fused_iter_batched"][k_t] = timed(
-            lambda: fused_iter_batched(A.data, A.offsets, *vt, mt, inv_a, at, at), 10)
+        if k_t != KB:
+            lane_ms["fused_iter_batched"][k_t] = timed(
+                lambda: fused_iter_batched(A.data, A.offsets, *vt, mt, inv_a, at, at), 10)
+        lane_ms["fused_iter_bf16band"][k_t] = timed(
+            lambda: fused_iter_batched(A16.data, A.offsets, *vt, mt, inv_a, at, at), 10)
         del vt, mt
     a8 = torch.full((KB,), 1e-3, device=dev)
     Xa, Xq = lanes_of(KB, N, 700), lanes_of(KB, QN, 701)
@@ -1186,6 +1266,8 @@ def main() -> None:
         return {
             "fused_iter_batched": (kd * N * 4 + N * 4 + k_ * N * 72 + k_ * 21,
                                    k_ * (2 * kd * N + 23 * N)),
+            "fused_iter_bf16band": (kd * N * 2 + N * 4 + k_ * N * 72 + k_ * 21,
+                                    k_ * (2 * kd * N + 23 * N)),
             "spmv_dia_batched": (kd * N * 4 + k_ * N * 8, k_ * 2 * kd * N),
             "spmv_dia_batched_bf16": (kd * N * 2 + k_ * N * (2 + 4), k_ * 2 * kd * N),
             "fused_vma_batched": (QN * 4 + k_ * QN * 76 + k_ * 21, k_ * 23 * QN),
@@ -1199,7 +1281,7 @@ def main() -> None:
             f"{bounds[kn][1]}, {100 * bounds[kn][0] / times[kn][0]:.0f}%), plain "
             f"{times[kn][1]:.3f} ms, library {library.get(kn, float('nan')):.4f} ms")
     for kn, by_k in lane_ms.items():
-        by_k[KB] = times[kn][0]
+        by_k.setdefault(KB, times[kn][0])
         for k_t, ms in sorted(by_k.items()):
             bd = bound_of(*lane_work(kn, k_t), f32_peak)[0]
             log(f"{kn} k={k_t}: {ms:.4f} ms (bound {bd:.4f} ms, {100 * bd / ms:.0f}%)")
@@ -1253,6 +1335,41 @@ def main() -> None:
         del p1
         gc.collect()
         torch.cuda.empty_cache()
+    # the "cuda" core's bucket of 8 on poisson125(128), in f32 and with
+    # spmv_engine="bf16": each step one lane SPMV (spmv_dia_batched or
+    # spmv_dia_batched_bf16; three more at init, five f32 ones a residual
+    # replacement) and one fused_vma lanes call
+    B = torch.stack([(1.0 + 0.25 * lane) * b for lane in range(KB)])
+    for label, kw, spmv_kn in (("poisson125 cuda", {}, "spmv_dia_batched"),
+                               ("poisson125 cuda+bf16", {"spmv_engine": "bf16"},
+                                "spmv_dia_batched_bf16")):
+        p = repro_torch.plan(A, method="pipecg", engine="cuda", M="jacobi", atol=0.0, rtol=0.0,
+                             maxiter=TIMED_ITERS, **kw)
+        if p.describe()["core"] != "cuda":
+            fail(f"{label}: solve_batched resolved to core {p.describe()['core']}")
+        for f in counters.values():
+            f.launches = 0
+        res = p.solve_batched(B)
+        sync()
+        got = {kn: f.launches for kn, f in counters.items() if f.launches}
+        re_ = p.describe()["replace_every"]
+        replaced = sum(1 for it in range(1, res.steps) if re_ and (it + 1) % re_ == 0)
+        want = {spmv_kn: res.steps + 3, "fused_vma_batched": res.steps}
+        if replaced:
+            want["spmv_dia_batched"] = 5 * replaced
+        if got != want:
+            fail(f"{label}: solve_batched launched {got}, not {want}")
+        per_it = timed(lambda: p.solve_batched(B), 1) / res.steps
+        bound = (lane_work(spmv_kn, KB)[0] + N * 4 + KB * N * 76) / bw_peak * 1e3
+        batched_ms[label] = {KB: {"ms_per_iteration": per_it, "ms_per_rhs_iteration": per_it / KB,
+                                  "bound_ms": bound, "bound_per_rhs_ms": bound / KB,
+                                  "steps": res.steps, "launches": got}}
+        log(f"{label} solve_batched k={KB}: {per_it:.4f} ms per batched iteration, "
+            f"{per_it / KB:.4f} ms per rhs-iteration (bound {bound:.4f} / {bound / KB:.4f}); "
+            f"launches {got}")
+        del p, res
+        gc.collect()
+    del B
     record["solve_batched"] = batched_ms
 
     # the "bf16" SPMV engine's bucket of 8 on poisson125(128): its init SPMV
@@ -1699,15 +1816,16 @@ def main() -> None:
                                     {"launches": serve_launches["poisson125"]}),
              "spmv_dia_batched": ("poisson125 server, 64 requests (6c)",
                                   {"launches": serve_launches["poisson125"]}),
-             "spmv_dia_batched_bf16": ("poisson125 bf16 bucket of 8 (6b)",
-                                       {"launches": bf16_launches}),
+             "spmv_dia_batched_bf16": ("poisson125 cuda-core bf16 bucket of 8, 200 steps (6b)",
+                                       batched_ms["poisson125 cuda+bf16"][KB]),
+             "fused_iter_bf16band": ("poisson125 pipecg, bf16-band fused_iter core (3)", band16),
              "fused_vma_batched": ("Queen_4147 Bell server, 64 requests (6c)",
                                    {"launches": serve_launches["Queen_4147 Bell"]}),
              "spmv_bell_batched": ("Queen_4147 Bell server, 64 requests (6c)",
                                    {"launches": serve_launches["Queen_4147 Bell"]})}
     kernels = []
     for kname, (path, run) in paths.items():
-        base = kname.removesuffix("_bf16").removesuffix("_batched")
+        base = kname.removesuffix("_bf16").removesuffix("_batched").removesuffix("_bf16band")
         counted = kname if kname in BATCHED else base
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[base], "replaces": REPLACES[base],
@@ -1718,7 +1836,7 @@ def main() -> None:
         })
     summary = {
         "solves": {e: {kk: v for kk, v in r.items() if kk != "history"}
-                   for e, r in {**runs, "cuda+bf16": bf16}.items()},
+                   for e, r in {**runs, "cuda+bf16": bf16, "fused_iter bf16 band": band16}.items()},
         "queen_solves": {e: {kk: v for kk, v in r.items() if kk != "history"}
                          for e, r in qruns.items()},
         "ms_per_iteration": per_iter, "queen_ms_per_iteration": q_per_iter,

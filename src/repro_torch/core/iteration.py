@@ -151,13 +151,16 @@ def vma_core_cuda(z, q, s, p, x, r, u, w, n, m, inv_diag, alpha, beta, active=No
     return (*vecs, dots.unbind(-1))
 
 
-def make_fused_iter_core(A) -> Callable:
+def make_fused_iter_core(A, data_dtype: Optional[torch.dtype] = None) -> Callable:
     """Build a whole-iteration core for one DIA operator (one kernel/iter).
 
     The core folds the banded SPMV n = A m into the VMA + PC + dots pass
     (``kernels.fused_iter``). It works on vectors padded to ``core.n_pad``
     (a multiple of the kernels' block); the padded diagonals are pinned
-    on the core here — build once per plan, not per solve. The core is
+    on the core here — build once per plan, not per solve.
+    ``data_dtype=torch.bfloat16`` pins them in bf16 (half the band's
+    bytes); each entry is upcast to f32 before its product and the
+    vectors stay f32, as the JAX package's ``data_dtype``. The core is
     called with the current m and a second buffer that receives the new
     m, and returns the updated vectors. ``inv_diag`` is required (the
     identity PC is a unit diagonal). (k, n_pad) vectors go through the
@@ -176,6 +179,8 @@ def make_fused_iter_core(A) -> Callable:
         )
     n_pad = ceil_to(A.n, BLOCK)
     dp = torch.nn.functional.pad(A.data, (0, n_pad - A.n)).contiguous()
+    if data_dtype is not None:
+        dp = dp.to(data_dtype)
     offsets = A.offsets
 
     def core(z, q, s, p, x, r, u, w, m, m_out, inv_diag, alpha, beta, active=None):

@@ -127,10 +127,14 @@ def _pipecg_impl(A, b, M, x0, atol, rtol, maxiter, core_name, spmv_engine, repla
     if core_name == "fused_iter":
         core = core_obj if core_obj is not None else make_fused_iter_core(A)
         n_pad = core.n_pad
-        Ap = DIAMatrix(core.padded_data, A.offsets, n_pad)
     else:
         core = get_core(core_name)
         n_pad = ceil_to(n, BLOCK)
+    # init and replacement run the operator's own precision: the fused
+    # core's pinned band serves them unless it was pinned in another dtype
+    if core_name == "fused_iter" and core.padded_data.dtype == A.data.dtype:
+        Ap = DIAMatrix(core.padded_data, A.offsets, n_pad)
+    else:
         Ap = DIAMatrix(torch.nn.functional.pad(A.data, (0, n_pad - n)).contiguous(),
                        A.offsets, n_pad)
     bp = pad1d(b, n_pad)

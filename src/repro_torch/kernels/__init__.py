@@ -2,7 +2,8 @@
 spots and the LM substrate's two.
 
 fused_iter — the whole PIPECG iteration: banded DIA SPMV + 8 VMAs +
-             Jacobi PC + dot partials in one launch.
+             Jacobi PC + dot partials in one launch; the band f32 or
+             bf16 (f32 vectors and sums).
 fused_vma  — the iteration core: 8 VMAs + Jacobi PC + dot partials in
              one pass (paper §V-B kernel fusion, extended).
 spmv_dia   — banded/stencil SPMV, f32 or bf16 storage, f32 accumulate

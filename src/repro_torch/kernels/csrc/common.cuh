@@ -184,23 +184,19 @@ static __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// One element of a window: f32 through cp.async, bf16 converted through
-// registers (cp.async copies 4 bytes at least, and the window holds f32).
+// One element of an f32 window through cp.async (0 where !ok, not read).
 static __device__ __forceinline__ void stage_one(float* dst, const float* __restrict__ x,
                                                  int64_t at, bool ok) {
   cp_async4(dst, ok ? x + at : x, ok ? 4 : 0);
 }
-static __device__ __forceinline__ void stage_one(float* dst, const __nv_bfloat16* __restrict__ x,
-                                                 int64_t at, bool ok) {
-  *dst = ok ? __bfloat162float(x[at]) : 0.f;
-}
 
-// Stages columns [lo, lo + W) of lanes 0..K-1 into win (W rows of KP),
-// lo a multiple of 8; lanes not in `live` and columns outside [0, n) are
-// 0. Every thread of the block calls it; the caller commits and waits.
-template <int K, int KP, typename T>
+// Stages columns [lo, lo + W) of lanes 0..K-1 of an f32 x into win (W
+// rows of KP), lo a multiple of 8; lanes not in `live` and columns outside
+// [0, n) are 0. Every thread of the block calls it; the caller commits and
+// waits.
+template <int K, int KP>
 static __device__ __forceinline__ void stage_lanes(float* __restrict__ win,
-                                                   const T* __restrict__ x, unsigned live,
+                                                   const float* __restrict__ x, unsigned live,
                                                    int64_t lo, int W, int64_t n) {
   // element e: chunk e / (8 KP) of 8 columns, lane (e / 8) % KP, column e % 8
   const int total = ((W + 7) >> 3) * 8 * KP;
@@ -317,7 +313,9 @@ static __device__ __forceinline__ void st_lane(float* p, float v) {
 // acc[l] += sum_j data[j, i] * x[l, i + off_j] over every diagonal, in j
 // order and with x zero outside [0, n): the same operations for every K, so
 // a lane's sum does not depend on how many lanes share the launch (and at
-// K = 1 they are the single-vector kernel's). Lanes not in `live` are not
+// K = 1 they are the single-vector kernel's). The band (TD) is f32 or bf16,
+// upcast per product; x (TX) is f32 for K > 1 (the windows hold f32), f32
+// or bf16 at K = 1. Lanes not in `live` are not
 // read (their sums are junk: the caller discards them). Every thread of the
 // block calls it (it synchronises); rows i >= n stage but do not
 // accumulate. `wins` is dia_window_bytes<K> of dynamic shared memory, not
@@ -325,10 +323,10 @@ static __device__ __forceinline__ void st_lane(float* p, float v) {
 // lane gathers x through L1 instead: staging it measured 13% slower
 // (PERF.md). For K > 1 the next group's window is copied in (cp.async)
 // while the current one is read: one barrier a group.
-template <int K, typename T>
+template <int K, typename TD, typename TX>
 static __device__ __forceinline__ void dia_lanes_sum(const DiagRuns& dr,
-                                                     const T* __restrict__ data,
-                                                     const T* __restrict__ x, unsigned live,
+                                                     const TD* __restrict__ data,
+                                                     const TX* __restrict__ x, unsigned live,
                                                      int64_t i0, int64_t n, float (&acc)[K],
                                                      float* __restrict__ wins) {
   const int64_t i = i0 + threadIdx.x;

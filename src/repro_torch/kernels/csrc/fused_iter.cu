@@ -6,11 +6,15 @@
 // and the same kernel under jax.vmap (the serving tier's solve_batched on a
 // DIA operator).
 //
+// The band is f32 (fused_iter_f32) or bf16 (fused_iter_bf16band_f32, the
+// reference's make_fused_iter_core(A, data_dtype=bfloat16)): each entry is
+// upcast to f32 before its product, the vectors and sums stay f32.
+//
 // Bound on this card: bytes. Per row the band (k_diag entries) and inv are
 // read once for all K lanes; each lane reads 9 vectors and writes 9:
-// 504 + 72 K bytes a row at 125 diagonals (576 B at K = 1, where the band
-// is nearly 90% of it, so the kernel should run only a little faster than
-// spmv_dia followed by fused_vma).
+// 504 + 72 K bytes a row at 125 diagonals with an f32 band (576 B at K = 1,
+// where the band is nearly 90% of it, so the kernel should run only a
+// little faster than spmv_dia followed by fused_vma), 254 + 72 K with bf16.
 //
 // Design: one thread per row, K sums in registers: each diagonal entry is
 // loaded once (coalesced: data is (k_diag, n) row-major) and multiplied into
@@ -39,9 +43,9 @@
 // read; when no lane is live the band is not read at all.
 #include "common.cuh"
 
-template <int K>
+template <int K, typename TD>
 __global__ void __launch_bounds__(REPRO_BLOCK)
-fused_iter_kernel(const __grid_constant__ DiagRuns runs, const float* __restrict__ data,
+fused_iter_kernel(const __grid_constant__ DiagRuns runs, const TD* __restrict__ data,
                   const float* __restrict__ m_in, float* __restrict__ m_out, float* __restrict__ z,
                   float* __restrict__ q, float* __restrict__ s, float* __restrict__ p,
                   float* __restrict__ x, float* __restrict__ r, float* __restrict__ u,
@@ -107,7 +111,7 @@ fused_iter_kernel(const __grid_constant__ DiagRuns runs, const float* __restrict
   }
 }
 
-template <int K>
+template <int K, typename TD>
 static cudaError_t launch_fused_iter(const int* offsets, int k, int64_t blocks, cudaStream_t st,
                                      const void* data, const void* m_in, void* m_out, void* z,
                                      void* q, void* s, void* p, void* x, void* r, void* u,
@@ -117,10 +121,10 @@ static cudaError_t launch_fused_iter(const int* offsets, int k, int64_t blocks, 
   static std::atomic<int> raised{0};
   const DiagRuns runs = lane_runs<K>(offsets, k);
   const size_t smem = dia_window_bytes<K>(runs);
-  const cudaError_t err = allow_shared(fused_iter_kernel<K>, smem, &raised);
+  const cudaError_t err = allow_shared(fused_iter_kernel<K, TD>, smem, &raised);
   if (err != cudaSuccess) return err;
-  fused_iter_kernel<K><<<(unsigned)blocks, REPRO_BLOCK, smem, st>>>(
-      runs, (const float*)data, (const float*)m_in, (float*)m_out, (float*)z, (float*)q,
+  fused_iter_kernel<K, TD><<<(unsigned)blocks, REPRO_BLOCK, smem, st>>>(
+      runs, (const TD*)data, (const float*)m_in, (float*)m_out, (float*)z, (float*)q,
       (float*)s, (float*)p, (float*)x, (float*)r, (float*)u, (float*)w, (const float*)inv,
       (const float*)alpha, (const float*)beta, (const uint8_t*)active, (float*)partials, n);
   return cudaGetLastError();
@@ -129,11 +133,12 @@ static cudaError_t launch_fused_iter(const int* offsets, int k, int64_t blocks, 
 // `lanes` (1..REPRO_MAX_LANES) rows of (lanes, n) vectors; alpha, beta and
 // active (may be NULL) hold one entry a lane; partials is (lanes, blocks, 3)
 // and dots (lanes, 3).
-extern "C" int fused_iter_f32(const int* offsets, int k, int lanes, const void* data,
-                              const void* m_in, void* m_out, void* z, void* q, void* s, void* p,
-                              void* x, void* r, void* u, void* w, const void* inv,
-                              const void* alpha, const void* beta, const void* active,
-                              void* partials, void* dots, int64_t n, void* stream) {
+template <typename TD>
+static int fused_iter(const int* offsets, int k, int lanes, const void* data, const void* m_in,
+                      void* m_out, void* z, void* q, void* s, void* p, void* x, void* r,
+                      void* u, void* w, const void* inv, const void* alpha, const void* beta,
+                      const void* active, void* partials, void* dots, int64_t n,
+                      void* stream) {
   if (k < 0 || k > REPRO_MAX_DIAGS || n <= 0 || lanes < 1 || lanes > REPRO_MAX_LANES)
     return (int)cudaErrorInvalidValue;
   const int64_t blocks = repro_blocks(n);
@@ -141,8 +146,8 @@ extern "C" int fused_iter_f32(const int* offsets, int k, int lanes, const void* 
   cudaError_t err = cudaErrorInvalidValue;
 #define REPRO_FUSED_ITER(K)                                                                   \
   case K:                                                                                     \
-    err = launch_fused_iter<K>(offsets, k, blocks, st, data, m_in, m_out, z, q, s, p, x, r, u, \
-                               w, inv, alpha, beta, active, partials, n);                     \
+    err = launch_fused_iter<K, TD>(offsets, k, blocks, st, data, m_in, m_out, z, q, s, p, x, r, \
+                                   u, w, inv, alpha, beta, active, partials, n);              \
     break;
   switch (lanes) {
     REPRO_FUSED_ITER(1)
@@ -160,3 +165,24 @@ extern "C" int fused_iter_f32(const int* offsets, int k, int lanes, const void* 
       (const float*)partials, blocks, (const uint8_t*)active, (float*)dots);
   return (int)cudaGetLastError();
 }
+
+extern "C" {
+
+int fused_iter_f32(const int* offsets, int k, int lanes, const void* data, const void* m_in,
+                   void* m_out, void* z, void* q, void* s, void* p, void* x, void* r, void* u,
+                   void* w, const void* inv, const void* alpha, const void* beta,
+                   const void* active, void* partials, void* dots, int64_t n, void* stream) {
+  return fused_iter<float>(offsets, k, lanes, data, m_in, m_out, z, q, s, p, x, r, u, w, inv,
+                           alpha, beta, active, partials, dots, n, stream);
+}
+
+int fused_iter_bf16band_f32(const int* offsets, int k, int lanes, const void* data,
+                            const void* m_in, void* m_out, void* z, void* q, void* s, void* p,
+                            void* x, void* r, void* u, void* w, const void* inv,
+                            const void* alpha, const void* beta, const void* active,
+                            void* partials, void* dots, int64_t n, void* stream) {
+  return fused_iter<__nv_bfloat16>(offsets, k, lanes, data, m_in, m_out, z, q, s, p, x, r, u, w,
+                                   inv, alpha, beta, active, partials, dots, n, stream);
+}
+
+}  // extern "C"

@@ -3,7 +3,12 @@ from __future__ import annotations
 
 import ctypes
 
+import torch
+
 from ..common import library
+
+# the band's dtype -> entry; the vectors and sums are f32 in both
+ENTRIES = {torch.float32: "fused_iter_f32", torch.bfloat16: "fused_iter_bf16band_f32"}
 
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # host int32 offsets, k, lanes
@@ -18,8 +23,9 @@ def launch(offsets, data, m_in, m_out, vecs, inv, alpha, beta, active, partials,
     1-D vectors are one lane); vecs = (z, q, s, p, x, r, u, w), updated in
     place, and m_out receives the new m. alpha, beta and active (may be
     None) hold one entry a lane, partials (lanes, blocks, 3) and dots
-    (lanes, 3) entries. Checked by the wrapper."""
-    fn = library().fused_iter_f32
+    (lanes, 3) entries; data is f32 or bf16 (the entry of its dtype).
+    Checked by the wrapper."""
+    fn = getattr(library(), ENTRIES[data.dtype])
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     offs = (ctypes.c_int * len(offsets))(*offsets)

@@ -30,7 +30,8 @@ def fused_iter_step(data, offsets, z, q, s, p, x, r, u, w, m, m_out, inv_diag,
                     alpha, beta, active=None):
     """One fused PIPECG iteration: SPMV n = A m + 8 VMAs + Jacobi PC + dots.
 
-    ``data`` is (k, len) float32 with the DIA zero convention; the 8
+    ``data`` is (k, len) float32 or bfloat16 (each entry upcast to f32
+    before its product) with the DIA zero convention; the 8 float32
     vectors z..w are updated in place and the new m is written to
     ``m_out``, a second buffer (the kernel reads m's halo across blocks,
     so m cannot be updated in place). Returns (z, q, s, p, x, r, u, w,
@@ -72,8 +73,9 @@ fused_iter_step.launches = 0
 
 
 def _check_band(data, offsets, length, dev) -> None:
-    if data.device != dev or data.dtype != torch.float32:
-        raise TypeError(f"data must be float32 on {dev}, got {data.dtype} on {data.device}")
+    if data.device != dev or data.dtype not in kernel.ENTRIES:
+        raise TypeError(f"data must be float32 or bfloat16 on {dev}, got {data.dtype} on "
+                        f"{data.device}")
     if data.shape != (len(offsets), length) or not data.is_contiguous():
         raise ValueError(f"data must be contiguous ({len(offsets)}, {length}), got {tuple(data.shape)}")
     if len(offsets) > MAX_DIAGS:
@@ -83,9 +85,10 @@ def _check_band(data, offsets, length, dev) -> None:
 def fused_iter_batched(data, offsets, z, q, s, p, x, r, u, w, m, m_out, inv_diag,
                        alpha, beta, active=None):
     """The fused iteration for k right-hand sides at once (the TPU kernel
-    under ``jax.vmap``): vectors are (k, len) float32, ``inv_diag`` (len,)
-    is shared, ``alpha``/``beta`` are (k,) and ``active`` None or a (k,)
-    bool device tensor. The band is read once for up to 8 lanes; a larger
+    under ``jax.vmap``): vectors are (k, len) float32, ``data`` float32 or
+    bfloat16 as in :func:`fused_iter_step`, ``inv_diag`` (len,) is shared,
+    ``alpha``/``beta`` are (k,) and ``active`` None or a (k,) bool device
+    tensor. The band is read once for up to 8 lanes; a larger
     k runs in chunks of 8, one launch each. A lane whose flag is False is
     left untouched (only its m is copied to m_out) and its dots are 0.
     Returns (z, ..., w, m_out, dots) with dots (k, 3). On CPU tensors this

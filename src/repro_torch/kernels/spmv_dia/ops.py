@@ -58,11 +58,14 @@ spmv_dia_cuda.launches = 0
 
 def spmv_dia_batched(A: DIAMatrix, x: torch.Tensor, active=None) -> torch.Tensor:
     """Y[l] = A @ x[l] for k right-hand sides, x of shape (k, n), float32
-    (the TPU kernel under ``jax.vmap``). The band is read once for up to 8
-    lanes; a larger k runs in chunks of 8, one launch each. ``active`` is
-    None or a (k,) bool device tensor; a lane whose flag is False reads
-    nothing and gets 0. On a CPU tensor this runs the plain version; on a
-    CUDA tensor it launches the kernel or raises.
+    (the TPU kernel under ``jax.vmap``). One launch takes up to 8 lanes and
+    reads the band from device memory once for all of them (2 to 8 lanes:
+    the tile kernel, 1024 rows a block with windows of x in shared memory;
+    one lane: the single-vector kernel); a larger k runs in chunks of 8,
+    one launch each. Lane l is bit for bit ``spmv_dia_cuda(A, x[l])``.
+    ``active`` is None or a (k,) bool device tensor; a lane whose flag is
+    False reads nothing and gets 0. On a CPU tensor this runs the plain
+    version; on a CUDA tensor it launches the kernel or raises.
     ``spmv_dia_batched.launches`` counts kernel launches.
     """
     if x.device.type == "cpu":
@@ -76,10 +79,11 @@ spmv_dia_batched.launches = 0
 def spmv_dia_batched_bf16(A: DIAMatrix, x: torch.Tensor, active=None) -> torch.Tensor:
     """The mixed-precision SPMV for k right-hand sides: bf16 ``A.data`` and
     x of shape (k, n), every product summed in f32, Y float32 (the "bf16"
-    engine's ``spmv_dia_bf16`` under ``jax.vmap``). Lane l is bit for bit
-    ``spmv_dia_cuda(A, x[l], out_dtype=torch.float32)``. ``active`` as in
-    :func:`spmv_dia_batched`. On a CPU tensor this runs the plain version;
-    on a CUDA tensor it launches the kernel or raises.
+    engine's ``spmv_dia_bf16`` under ``jax.vmap``), launched as
+    :func:`spmv_dia_batched` is, its windows of x kept in bf16. Lane l is
+    bit for bit ``spmv_dia_cuda(A, x[l], out_dtype=torch.float32)``.
+    ``active`` as in :func:`spmv_dia_batched`. On a CPU tensor this runs
+    the plain version; on a CUDA tensor it launches the kernel or raises.
     ``spmv_dia_batched_bf16.launches`` counts kernel launches.
     """
     if x.device.type == "cpu":

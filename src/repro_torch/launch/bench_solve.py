@@ -9,7 +9,10 @@ Each row is the median, with the quartiles, of ``--repeats`` timings of one
 ``plan.solve(b)`` (CUDA events, as ``chip_smoke.py`` times it):
 
 - ``poisson125(128)`` pipecg, ``auto`` (``fused_iter``) and ``cuda``, at a
-  fixed 200 iterations: ms per iteration;
+  fixed 200 iterations: ms per iteration; and ``solve_batched`` of 8
+  right-hand sides on the ``cuda`` core, in f32 and with
+  ``spmv_engine="bf16"`` (one lane SPMV and one ``fused_vma`` lanes call a
+  step): ms per batched iteration over a fifth of the repeats;
 - Queen_4147 (``table1_matrix("Queen_4147")``, DIA and Bell forms), pipecg
   ``auto`` and pcg, to rtol 1e-3: ms per solve, set-up and the no-op steps
   up to the host's poll included, plus the host's wall-clock per solve;
@@ -106,6 +109,13 @@ def main(argv=None) -> None:
         p = plan(A, method="pipecg", engine=engine, M="jacobi", atol=0.0, rtol=0.0, maxiter=200)
         dev_ms, _ = _timed(lambda: p.solve(b), args.repeats)
         rows[f"poisson125 {engine} ms/iteration"] = _quartiles([t / 200 for t in dev_ms])
+    B = torch.stack([(1.0 + 0.25 * lane) * b for lane in range(8)])
+    for label, kw in (("cuda", {}), ("cuda+bf16", {"spmv_engine": "bf16"})):
+        p = plan(A, method="pipecg", engine="cuda", M="jacobi", atol=0.0, rtol=0.0, maxiter=200,
+                 **kw)
+        dev_ms, _ = _timed(lambda: p.solve_batched(B), max(5, args.repeats // 5))
+        rows[f"poisson125 k=8 {label} ms/batched iteration"] = _quartiles([t / 200 for t in dev_ms])
+    del B
     # alpha = beta = 0 keeps the repeated updates bounded
     vecs = [torch.rand(A.n, device=dev) for _ in range(11)]
     zero = torch.zeros((), device=dev)

@@ -25,7 +25,6 @@ from repro_torch.kernels import (
     spmv_bell_cuda,
     spmv_dia_batched,
     spmv_dia_batched_bf16,
-    spmv_dia_batched_ref,
     spmv_dia_cuda,
 )
 from repro_torch.kernels.common import BLOCK, ceil_to
@@ -75,21 +74,6 @@ def _padded(A):
     n_pad = ceil_to(A.n, BLOCK)
     return DIAMatrix(torch.nn.functional.pad(A.data, (0, n_pad - A.n)).contiguous(), A.offsets,
                      n_pad)
-
-
-@pytest.mark.parametrize("k", LANES)
-def test_spmv_dia_batched(cuda, k):
-    A = _padded(poisson27(37, device=cuda))
-    X = _lanes(k, A.n, 0, cuda)
-    act = _flags(k, cuda)
-    before = spmv_dia_batched.launches
-    Y = spmv_dia_batched(A, X, act)
-    torch.cuda.synchronize()
-    assert spmv_dia_batched.launches == before + -(-k // 8)
-    torch.testing.assert_close(Y, spmv_dia_batched_ref(A.data, A.offsets, X, act), **VEC)
-    for lane in range(k):
-        want = spmv_dia_cuda(A, X[lane]) if act[lane] else torch.zeros(A.n, device=cuda)
-        torch.testing.assert_close(Y[lane], want, **VEC)
 
 
 @pytest.mark.parametrize("k", LANES)
