@@ -111,6 +111,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
    launches per step, ms per step, tokens/s, the optimizer's ms beside
    its bound, peak memory; (c) 5 steps from the same init with the plain
    (tree) optimizer, held against (b).
+7. the paper's hybrid methods on the card and the host's cores, after 5:
+   (a) ``plan(A, method="h3", shards=1)`` on the card at poisson125(128):
+   the iterations of ``plan(A, engine="cuda").solve(b)``, x within 1e-5,
+   spmv_dia and fused_vma launched; (b) the paper's Method 3: h3 on
+   ("cuda", "cpu"), ``partition="nnz"`` with weights from
+   ``measure_spmv_time`` on each device, each timing its shard's own SPMV
+   (the host's raised, if the model gives it fewer rows than the halo
+   width, to the least that holds it; both printed), at poisson125(128):
+   the model's prediction for each shard's block beside the block's SPMV
+   timed alone and the shard's compute per step in the solve; iterations
+   against the single card (within 2), the float64 true residual below
+   1e-2, ms per iteration and per step, each shard's loop, compute and
+   wait ms by collective kind, one reduction per iteration, the card's
+   idle share from torch.profiler over one more solve, and ``spmv_dia`` on
+   the card shard's operands (its local band and both one-sided
+   correction bands) held against the plain SPMV at the kernels
+   line's tolerance; (c) h1, h2, pl2, pl3 on ("cuda",
+   "cpu") with equal rows and h4 on 4 shards (sub=2) at poisson125(64):
+   reductions per iteration 3, 1, 0.5, 1/3 and 2 from the communicator's
+   counters, each converged (true residual below 1e-2) within 2
+   iterations of the single card; (d) ``solve_batched`` with k = 4 on a
+   hybrid h3 plan at poisson125(64): each lane has its ``plan.solve``
+   iterations and x within 1e-6, the lane kernels launched, and
+   ``spmv_dia_batched`` (one lane inactive) on the card shard's operands
+   against the plain SPMV, as in (b); (e) the
+   ``SolveReport`` of one Method 3 solve, whose environment names the card
+   and its power limit. The kernels line gives spmv_dia, fused_vma and
+   their lane entries a ``hybrid_launches`` count from (b) and (d).
 
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -1796,6 +1824,293 @@ def main() -> None:
         "profile": breakdown,
     }
 
+    # ------------------------------------------------------------------ 7
+    # the paper's hybrid methods on the card and the host's cores
+    import repro_torch.obs as obs
+    from repro_torch.core.distributed import _local_spmv, reductions_per_iteration
+    from repro_torch.core.perfmodel import decompose, measure_spmv_time, relative_weights
+
+    t7 = time.perf_counter()
+    # phases 2-4's operator went before training (5): built again, with
+    # phase 3's right-hand side
+    A = poisson125(128, device=dev)
+    b = spmv(A, torch.full((A.n,), 1.0 / math.sqrt(A.n), device=dev))
+    hybrid_counters = {"spmv_dia": spmv_dia_cuda, "fused_vma": fused_vma_dots,
+                       "spmv_dia_batched": spmv_dia_batched,
+                       "fused_vma_batched": fused_vma_dots_batched,
+                       "fused_iter": fused_iter_step, "fused_iter_batched": fused_iter_batched}
+
+    def hybrid_run(p, rhs):
+        """One solve (or a batched one for (k, n) rhs), the counters at 0
+        just before it and read just after."""
+        for f in hybrid_counters.values():
+            f.launches = 0
+        sync()
+        t = time.perf_counter()
+        res = p.solve(rhs) if rhs.dim() == 1 else p.solve_batched(rhs)
+        sync()
+        wall = time.perf_counter() - t
+        return res, wall, {kn: f.launches for kn, f in hybrid_counters.items() if f.launches}
+
+    def f64_residual(op, rhs):
+        """||rhs - A x|| / ||rhs|| in float64 on the card (plain torch ops)."""
+        op64 = DIAMatrix(op.data.double(), op.offsets, op.n)
+        rhs64 = rhs.double()
+
+        def fn(xs):
+            return float(torch.linalg.norm(rhs64 - spmv(op64, xs.double(), engine="torch"))
+                         / torch.linalg.norm(rhs64))
+        return fn
+
+    def host_weights(op, w_model):
+        """The model's weights, the host's raised (if it must be) to the
+        least that leaves it the halo width in rows (an unequal shard
+        holds at least the bandwidth)."""
+        hw_ = op.bandwidth
+        w = np.asarray(w_model, dtype=np.float64)
+        cut = decompose(op, 2, w)
+        if cut[2] - cut[1] >= hw_:
+            return w, cut
+        cum = np.cumsum((op.data != 0).sum(dim=0).cpu().numpy(), dtype=np.float64)
+        w0 = cum[op.n - hw_ - 1] / cum[-1]
+        for _ in range(20):
+            w = np.array([w0, 1.0 - w0])
+            cut = decompose(op, 2, w)
+            if cut[2] - cut[1] >= hw_:
+                return w, cut
+            w0 *= 1.0 - 1e-7
+        fail(f"no weight leaves the host {hw_} rows")
+
+    def shard_line(p, res, wall, iters_ref, label):
+        st = p.last_stats
+        waits = [{kind: round(s * 1e3, 3) for kind, s in w.items()} for w in st["wait_s"]]
+        compute = [round((s - sum(w.values())) * 1e3, 3)
+                   for s, w in zip(st["shard_s"], st["wait_s"])]
+        out = dict(iterations=int(res.iterations), steps=res.steps, wall_s=wall,
+                   ms_per_iteration=wall * 1e3 / max(int(res.iterations), 1),
+                   ms_per_step=wall * 1e3 / max(res.steps, 1),
+                   shard_loop_ms=[s * 1e3 for s in st["shard_s"]], shard_compute_ms=compute,
+                   shard_wait_ms=waits, counts=st["counts"],
+                   reductions_per_iteration=reductions_per_iteration(st),
+                   single_card_iterations=iters_ref)
+        log(f"{label}: {out['iterations']} iterations ({out['steps']} steps; single card "
+            f"{iters_ref}), {wall * 1e3:.1f} ms, {out['ms_per_iteration']:.3f} ms per iteration, "
+            f"{out['ms_per_step']:.3f} ms per step; reductions per iteration "
+            f"{out['reductions_per_iteration']:.4f}; per shard loop ms "
+            f"{[round(v, 1) for v in out['shard_loop_ms']]}, compute ms {compute}, wait ms {waits}")
+        return out
+
+    def check_card_shard(p, A_full, X, tag):
+        """The card shard's three DIA operands on the path (the block's
+        local band, part 1, and the two correction bands of part 2) through
+        the path's wrapper (``_local_spmv``: ``spmv_dia_cuda``, or
+        ``spmv_dia_batched`` for (k, n) lanes) and through the plain SPMV
+        on the same tensors, with the kernels line's rule. X is the solve's
+        x: the card's block of it, and the slabs the halo SPMV would place
+        next to the corrections, are the inputs. Rank 0 has no left
+        neighbour, so its left band is off the path; it gets the last hw
+        entries of X all the same. Then part 1 plus the right correction,
+        added as ``spmv_halo`` adds them, against the plain SPMV of the
+        whole operator on the card shard's rows (not a kernels-line
+        error: the sums run in another order)."""
+        shard = p._runner(None if X.dim() == 1 else X.shape[0]).solver.shards[0]
+        if not shard.on_card:
+            fail(f"{tag}: shard 0 lies on {shard.device}")
+        lanes, (lo, R, hw, m) = X.shape[:-1], (shard.lo, shard.rows, shard.hw, shard.edge)
+        key = "spmv_dia" if X.dim() == 1 else "spmv_dia_batched"
+        # the lanes' flags as the loop passes them: one lane inactive
+        act = None if X.dim() == 1 else torch.arange(X.shape[0], device=dev) != 1
+        pad = X.new_zeros(*lanes, m)
+        cases = (("local", shard.local, X[..., lo: lo + R]),
+                 ("left band", shard.left_band, torch.cat([X[..., X.shape[-1] - hw:], pad], -1)),
+                 ("right band", shard.right_band, torch.cat([pad, X[..., lo + R: lo + R + hw]], -1)))
+        out, got = {}, {}
+        for label, op, v in cases:
+            if op is None:
+                continue
+            v = v.contiguous()
+            got[label] = _local_spmv(op, v, act)
+            want = spmv(op, v, engine="torch")
+            if act is not None:
+                want = torch.where(act[:, None], want, torch.zeros_like(want))
+            err = check(f"{key} {tag}, card shard {label}", got[label], want, **VEC)
+            errs[key] = max(errs[key], err)
+            out[label] = dict(rows=op.n, diagonals=op.n_diags, max_abs_err=err)
+        y = got["local"].clone()
+        y[..., R - m:] += got["right band"][..., :m]
+        want = spmv(A_full, X, engine="torch")[..., lo: lo + R]
+        if act is not None:
+            want = torch.where(act[:, None], want, torch.zeros_like(want))
+        out["rows of A x"] = dict(rows=R, max_abs_err=check(
+            f"{tag}: the card shard's part 1 + correction vs A x", y, want, **VEC))
+        log(f"{key} on the card shard's operands, {tag}: "
+            + "; ".join(f"{k_} {v_.get('diagonals', A_full.n_diags)} diagonals x {v_['rows']} "
+                        f"rows, max abs err {v_['max_abs_err']:.3e}" for k_, v_ in out.items()))
+        return out
+
+    hybrid: dict = {}
+    # (a) one card shard equals the single-card cuda solve
+    ref7 = repro_torch.plan(A, engine="cuda", M="jacobi", atol=0.0, rtol=SOLVE_RTOL,
+                            maxiter=2000).solve(b)
+    p1 = repro_torch.plan(A, method="h3", shards=1, M="jacobi", atol=0.0, rtol=SOLVE_RTOL,
+                          maxiter=2000)
+    if p1.describe()["mesh_devices"] != (str(A.device),):
+        fail(f"shards=1: mesh {p1.describe()['mesh_devices']}, not the card")
+    r1, w1, l1 = hybrid_run(p1, b)
+    err1 = float((r1.x - ref7.x).abs().max())
+    log(f"h3 shards=1 on the card: {int(r1.iterations)} iterations (plan engine=cuda: "
+        f"{int(ref7.iterations)}), max |x - x_cuda| {err1:.3e}, {w1 * 1e3:.1f} ms, "
+        f"launches {l1}")
+    if int(r1.iterations) != int(ref7.iterations) or not err1 <= 1e-5:
+        fail(f"h3 shards=1 differs from plan(A, engine='cuda'): {int(r1.iterations)} vs "
+             f"{int(ref7.iterations)} iterations, max |dx| {err1:.3e}")
+    if not (l1.get("spmv_dia") and l1.get("fused_vma")):
+        fail(f"h3 shards=1 launched {l1}")
+    hybrid["one_card_shard"] = dict(iterations=int(r1.iterations), max_abs_dx=err1, wall_s=w1,
+                                    launches=l1)
+
+    # (b) the paper's Method 3: h3 on the card and the host, rows cut by nnz
+    # in proportion to each device's measured SPMV speed
+    A_host = DIAMatrix(A.data.cpu(), A.offsets, A.n)
+    t_card, t_host = measure_spmv_time(A), measure_spmv_time(A_host)
+    w_model = relative_weights([t_card, t_host])
+    w_used, cut = host_weights(A, w_model)
+    log(f"Method 3 performance model: SPMV {t_card * 1e3:.4f} ms on the card, "
+        f"{t_host * 1e3:.2f} ms on the host (each the shard's own SPMV over the whole operator, "
+        f"median of 5); model weights {[round(float(v), 6) for v in w_model]}, used "
+        f"{[round(float(v), 6) for v in w_used]} (the host holds at least the halo width "
+        f"{A.bandwidth} rows); bounds {cut.tolist()}")
+    # the model's prediction for each shard's block (whole-operator time x
+    # the block's share of the rows) beside that block's SPMV, timed alone
+    rows3 = np.diff(cut)
+    block_pred = [t_card * rows3[0] / A.n, t_host * rows3[1] / A.n]
+    block_meas = [measure_spmv_time(A, rows=int(rows3[0])),
+                  measure_spmv_time(A_host, rows=int(rows3[1]))]
+    del A_host
+    log("Method 3 block SPMV, predicted by the model / measured alone (ms): card "
+        f"{block_pred[0] * 1e3:.4f} / {block_meas[0] * 1e3:.4f} ({int(rows3[0])} rows), host "
+        f"{block_pred[1] * 1e3:.4f} / {block_meas[1] * 1e3:.4f} ({int(rows3[1])} rows)")
+    p3 = repro_torch.plan(A, method="h3", shards=2, devices=("cuda", "cpu"), partition="nnz",
+                          weights=w_used, M="jacobi", atol=0.0, rtol=SOLVE_RTOL, maxiter=2000)
+    d3 = p3.describe()
+    if d3["shard_cores"] != ("cuda", "torch") or list(d3["shard_bounds"]) != cut.tolist():
+        fail(f"Method 3 plan: {d3}")
+    hybrid_run(p3, b)  # first solve: the pinned buffers and threads warm up
+    r3, w3, l3 = hybrid_run(p3, b)
+    tr3 = true_residual(r3.x)
+    m3 = shard_line(p3, r3, w3, int(ref7.iterations), "Method 3 (h3, card + host)")
+    log(f"Method 3: converged={bool(r3.converged)}, float64 true relative residual {tr3:.3e}, "
+        f"launches {l3}")
+    if not bool(r3.converged) or not tr3 < 1e-2:
+        fail(f"Method 3 did not converge (true residual {tr3:.3e})")
+    if abs(int(r3.iterations) - int(ref7.iterations)) > BASELINE_BAND:
+        fail(f"Method 3 took {int(r3.iterations)} iterations, the single card "
+             f"{int(ref7.iterations)}")
+    if not (l3.get("spmv_dia") and l3.get("fused_vma")):
+        fail(f"Method 3 launched {l3}")
+    if m3["reductions_per_iteration"] != 1.0:
+        fail(f"Method 3: {m3['reductions_per_iteration']} reductions per iteration, not 1")
+    step_ms = [c / max(r3.steps, 1) for c in m3["shard_compute_ms"]]
+    log(f"Method 3 per step, the shard's compute in the solve (ms): card {step_ms[0]:.4f}, host "
+        f"{step_ms[1]:.4f} (part 1, the corrections and the core; the model predicts part 1: "
+        f"{block_pred[0] * 1e3:.4f}, {block_pred[1] * 1e3:.4f})")
+    shard_checks3 = check_card_shard(p3, A, r3.x, "Method 3 poisson125(128)")
+    # the card's idle share over one more solve (torch.profiler: kernel time / wall)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof7:
+        t = time.perf_counter()
+        p3.solve(b)
+        sync()
+        prof_wall = time.perf_counter() - t
+    busy_us = 0.0
+    for evt in prof7.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA") and not evt.key.startswith("Mem"):
+            t_us = getattr(evt, "self_device_time_total", None)
+            busy_us += evt.self_cuda_time_total if t_us is None else t_us
+    idle = None if busy_us == 0 else 1.0 - busy_us / 1e3 / (prof_wall * 1e3)
+    log(f"Method 3 card idle share: {'not measured' if idle is None else f'{idle:.4f}'} "
+        f"(kernels busy {busy_us / 1e3:.2f} ms of {prof_wall * 1e3:.1f} ms, profiler on)")
+    hybrid["method3"] = dict(m3, spmv_s_card=t_card, spmv_s_host=t_host,
+                             weights_model=[float(v) for v in w_model],
+                             weights_used=[float(v) for v in w_used], bounds=cut.tolist(),
+                             true_residual=tr3, launches=l3, card_idle_share=idle,
+                             card_busy_ms=busy_us / 1e3, profiled_wall_ms=prof_wall * 1e3,
+                             block_spmv_ms_predicted=[v * 1e3 for v in block_pred],
+                             block_spmv_ms_measured=[v * 1e3 for v in block_meas],
+                             shard_compute_ms_per_step=step_ms, card_shard_checks=shard_checks3)
+
+    # (c) the other methods on the card and the host at poisson125(64)
+    A7 = poisson125(64, device=dev)
+    b7 = spmv(A7, torch.ones(A7.n, device=dev) / math.sqrt(A7.n))
+    resid7 = f64_residual(A7, b7)
+    ref64 = repro_torch.plan(A7, engine="cuda", M="jacobi", atol=0.0, rtol=SOLVE_RTOL,
+                             maxiter=2000).solve(b7)
+    card_host = ("cuda", "cpu")
+    methods7 = {"h1": (dict(shards=2, devices=card_host), 3.0),
+                "h2": (dict(shards=2, devices=card_host), 1.0),
+                "pl2": (dict(shards=2, devices=card_host), 0.5),
+                "pl3": (dict(shards=2, devices=card_host), 1.0 / 3.0),
+                "h4": (dict(shards=4, sub=2, devices=("cuda", "cpu", "cpu", "cpu")), 2.0)}
+    hybrid["methods"] = {}
+    for m, (kw, want_red) in methods7.items():
+        pm = repro_torch.plan(A7, method=m, M="jacobi", atol=0.0, rtol=SOLVE_RTOL, maxiter=2000,
+                              **kw)
+        rm, wm, lm = hybrid_run(pm, b7)
+        row = shard_line(pm, rm, wm, int(ref64.iterations), f"{m} poisson125(64) {kw['devices']}")
+        row.update(true_residual=resid7(rm.x), launches=lm, converged=bool(rm.converged))
+        if not row["converged"] or not row["true_residual"] < 1e-2:
+            fail(f"{m}: converged={row['converged']}, true residual {row['true_residual']:.3e}")
+        if abs(row["reductions_per_iteration"] - want_red) > 1e-12:
+            fail(f"{m}: {row['reductions_per_iteration']} reductions per iteration, not {want_red}")
+        if abs(row["iterations"] - int(ref64.iterations)) > BASELINE_BAND:
+            fail(f"{m}: {row['iterations']} iterations, the single card {int(ref64.iterations)}")
+        if not lm.get("spmv_dia"):
+            fail(f"{m}: the card shard launched no spmv_dia ({lm})")
+        hybrid["methods"][m] = row
+        del pm
+
+    # (d) solve_batched, k = 4, on the hybrid h3 plan at poisson125(64)
+    w7, cut7 = host_weights(A7, w_model)
+    pb = repro_torch.plan(A7, method="h3", shards=2, devices=card_host, partition="nnz",
+                          weights=w7, M="jacobi", atol=0.0, rtol=SOLVE_RTOL, maxiter=2000)
+    gb = torch.Generator(device=dev)
+    gb.manual_seed(7)
+    B7 = torch.stack([b7, 0.5 * b7] + [spmv(A7, torch.randn(A7.n, generator=gb, device=dev))
+                                       for _ in range(2)])
+    rb, wb, lb = hybrid_run(pb, B7)
+    if not (lb.get("spmv_dia_batched") and lb.get("fused_vma_batched")):
+        fail(f"hybrid solve_batched launched {lb}")
+    lanes7 = []
+    for lane in range(B7.shape[0]):
+        one = pb.solve(B7[lane])
+        dx = float((rb.x[lane] - one.x).abs().max())
+        lanes7.append(dict(iterations=int(rb.iterations[lane]), single=int(one.iterations),
+                           max_abs_dx=dx))
+        if int(rb.iterations[lane]) != int(one.iterations) or not dx <= 1e-6:
+            fail(f"hybrid solve_batched lane {lane}: {lanes7[-1]}")
+    log(f"hybrid h3 solve_batched k=4 at poisson125(64), bounds {cut7.tolist()}: "
+        f"{wb * 1e3:.1f} ms, lanes {lanes7}, launches {lb}")
+    shard_checks_b = check_card_shard(pb, A7, rb.x, "hybrid bucket of 4 poisson125(64)")
+    hybrid["batched"] = dict(bounds=cut7.tolist(), weights=[float(v) for v in w7], wall_s=wb,
+                             lanes=lanes7, launches=lb, card_shard_checks=shard_checks_b,
+                             ms_per_batched_step=wb * 1e3 / max(rb.steps, 1))
+
+    # (e) a SolveReport of one Method 3 solve, stamped with the card and its limit
+    obs.enable()
+    try:
+        p3.solve(b)
+        rep = p3.last_report
+    finally:
+        obs.disable()
+    log(rep.summary())
+    if rep.env.get("device_kind") != name or not rep.env.get("power_limit") \
+            or rep.env["power_limit"] not in card:
+        fail(f"the report's environment does not name the card and its limit: {rep.env}")
+    hybrid["report"] = rep.to_dict()
+    hybrid["phase_s"] = time.perf_counter() - t7
+    log(f"phase 7 took {hybrid['phase_s']:.1f} s")
+    record["hybrid"] = hybrid
+    del p1, p3, pb, A7, b7, B7, A, b
+
     # ------------------------------------------------------------------ 6
     # the path whose run each kernel's launches are read from (None: the
     # kernel is on no solver path, in the JAX package either)
@@ -1823,6 +2138,17 @@ def main() -> None:
                                    {"launches": serve_launches["Queen_4147 Bell"]}),
              "spmv_bell_batched": ("Queen_4147 Bell server, 64 requests (6c)",
                                    {"launches": serve_launches["Queen_4147 Bell"]})}
+    # phase 7's runs of the kernels on the hybrid path, beside each row's own
+    hybrid_paths = {
+        "spmv_dia": ("Method 3: h3 on the card + host, poisson125(128) (7b)",
+                     hybrid["method3"]["launches"].get("spmv_dia", 0)),
+        "fused_vma": ("Method 3: h3 on the card + host, poisson125(128) (7b)",
+                      hybrid["method3"]["launches"].get("fused_vma", 0)),
+        "spmv_dia_batched": ("hybrid h3 solve_batched k=4, poisson125(64) (7d)",
+                             hybrid["batched"]["launches"].get("spmv_dia_batched", 0)),
+        "fused_vma_batched": ("hybrid h3 solve_batched k=4, poisson125(64) (7d)",
+                              hybrid["batched"]["launches"].get("fused_vma_batched", 0)),
+    }
     kernels = []
     for kname, (path, run) in paths.items():
         base = kname.removesuffix("_bf16").removesuffix("_batched").removesuffix("_bf16band")
@@ -1834,6 +2160,9 @@ def main() -> None:
             "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
             "library_ms": library.get(kname),
         })
+        if kname in hybrid_paths:
+            kernels[-1].update(hybrid_path=hybrid_paths[kname][0],
+                               hybrid_launches=hybrid_paths[kname][1])
     summary = {
         "solves": {e: {kk: v for kk, v in r.items() if kk != "history"}
                    for e, r in {**runs, "cuda+bf16": bf16, "fused_iter bf16 band": band16}.items()},

@@ -33,6 +33,9 @@ no-ops on the device (the kernels, ``spmv_bell`` among them, return
 early; the plain core keeps x),
 so iteration counts, x, the residual norm and the NaN-tailed history are
 exactly those of a loop that stops at convergence.
+``make_deep_pipecg_core(l)`` builds the communication-reduced sibling
+loop (one global reduction per l iterations: the distributed methods
+``pl2``/``pl3``).
 
 Lane-batched solves (``SolverPlan.solve_batched``, the JAX package's
 ``jax.vmap`` of the loop) run the same loop over ``(k, n)`` vectors:
@@ -64,6 +67,7 @@ __all__ = [
     "torch_core",
     "vma_core_cuda",
     "make_fused_iter_core",
+    "make_deep_pipecg_core",
     "resolve_core_name",
     "get_core",
     "core_names",
@@ -334,11 +338,15 @@ def run_pipecg(
     replacement. ``replace_spmv_fn`` overrides the SPMV of residual
     replacement only (the full-precision safety net under the "bf16"
     engine). Kernel cores update their vectors in place, so every vector
-    the loop hands them is its own buffer. Returns ``(iterations, x,
-    residual_norm, converged, history, steps)``.
+    the loop hands them is its own buffer. A reducer with a ``post``
+    method (a mesh reducer, ``core.reduce``) is split in two: the loop
+    posts the dot partials before the SPMV of line 22 and waits for their
+    sums after it, so the reduction overlaps the SPMV. Returns
+    ``(iterations, x, residual_norm, converged, history, steps)``.
     """
     if reducer is None:
         reducer = make_reducer("local")
+    post = getattr(reducer, "post", None)
     if replace_spmv_fn is None:
         replace_spmv_fn = spmv_fn
     fused_spmv = bool(getattr(core, "fuses_spmv", False))
@@ -380,9 +388,14 @@ def run_pipecg(
             )
             if inv_diag is None:
                 m = pc_fn(w)  # general (non-fused) preconditioner
-        gamma_new, delta_new, uu = reducer(g_p, d_p, n_p)
+        if post is None:
+            gamma_new, delta_new, uu = reducer(g_p, d_p, n_p)
+        else:
+            wait = post(g_p, d_p, n_p)  # the sums are needed after the SPMV only
         if not fused_spmv:
             n = spmv_fn(m, active=conv.active)  # line 22
+        if post is not None:
+            gamma_new, delta_new, uu = wait()
         norm_new = torch.sqrt(uu)
 
         if replace_every > 0 and k > 0 and (k + 1) % replace_every == 0:
@@ -404,3 +417,203 @@ def run_pipecg(
         conv.record(k, norm_new)
         gamma, gamma_prev, delta, alpha_prev = gamma_new, gamma, delta_new, alpha
     return conv.iterations, x, conv.norm, conv.converged, conv.history, conv.steps
+
+
+# ---------------------------------------------------------------------------
+# depth-l pipelined (communication-reduced) CG — one reduction per l steps
+# ---------------------------------------------------------------------------
+
+def _per_lane(fn, *xs):
+    """``fn`` on each lane of (k, ...) tensors, stacked: a lane's result is
+    then bit for bit that of the same solve alone (a batched product may
+    add in another order)."""
+    return torch.stack([fn(*x) for x in zip(*xs)])
+
+
+def _quad(a: torch.Tensor, M: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Per-lane a^T M c for (k, m) coordinates and (k, m, m) Gram matrices."""
+    return (a * torch.bmm(M, c.unsqueeze(-1)).squeeze(-1)).sum(-1)
+
+
+def make_deep_pipecg_core(l: int):
+    r"""Build the depth-``l`` pipelined CG loop (one global reduction per l
+    iterations), the JAX package's ``make_deep_pipecg_core``.
+
+    Per outer step, on the split-preconditioned operator
+    ``At = D^{-1/2} A D^{-1/2}`` (Jacobi/identity only: CG on ``At`` gives
+    the iterates of Jacobi-PCG on ``A`` in exact arithmetic):
+
+    * the monomial bases ``P_j = At^j p`` (j = 0..l) and ``R_j = At^j r``
+      (j = 0..l-1): ``2l - 1`` SPMVs, no communication beyond the SPMV's;
+    * one reduction: the Gram matrices ``V V^T`` and ``V D^{-1} V^T`` of
+      ``V = [P | R]``, stacked, through the reducer's ``.array``;
+    * l CG iterations in coordinates (length 2l + 1), every dot a small
+      ``c^T G c`` form; a lane stops at its own iteration (a solve that
+      converges at iteration 7 under ``pl3`` reports 7, not 9);
+    * the vectors recovered from their coordinates, and residual
+      replacement (``replace_every``) rounded to outer steps.
+
+    The Gram matrices come back to the host once per outer step: the
+    coordinate steps run there, in float32 on the CPU, on every rank of a
+    mesh alike, so every rank reads the same bits and stops at the same
+    iteration (a card's and the host's matrix products need not agree
+    bit for bit). The loop therefore needs no convergence poll.
+
+    ``b`` may be (k, n): k lanes, each with its own coordinates, norm and
+    iteration count, and one reduction carrying all of them. Returns a
+    loop with :func:`run_pipecg`'s signature and result tuple (``steps``
+    counts the iterations the outer steps advanced), tagged
+    ``pipeline_depth = l``; ``pc_fn`` and ``core`` are accepted for that
+    signature and unused (the preconditioner is ``inv_diag``).
+    """
+    if l < 1:
+        raise ValueError(f"pipeline depth must be >= 1, got {l}")
+    m = 2 * l + 1  # basis size: P_0..P_l, R_0..R_{l-1}
+
+    # shift matrix: coordinates of (At v) from those of v. Columns l (P_l)
+    # and 2l (R_{l-1}) are zero: the inner steps never apply At to a vector
+    # reaching those basis tails
+    S = torch.zeros(m, m, dtype=torch.float32)
+    for j in range(l):
+        S[j + 1, j] = 1.0
+    for j in range(l - 1):
+        S[l + 2 + j, l + 1 + j] = 1.0
+
+    def run_deep_pipecg(
+        b: torch.Tensor,
+        x0: torch.Tensor,
+        *,
+        spmv_fn: Callable[[torch.Tensor], torch.Tensor],
+        pc_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        core: Optional[Callable] = None,
+        reducer: Optional[Reducer] = None,
+        inv_diag: Optional[torch.Tensor] = None,
+        atol: float,
+        rtol: float,
+        maxiter: int,
+        replace_every: int = 0,
+        replace_spmv_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    ):
+        del pc_fn, core  # elementwise PC only, through inv_diag
+        if reducer is None:
+            reducer = make_reducer("local")
+        reduce_array = getattr(reducer, "array", None)
+        if reduce_array is None:
+            raise ValueError(
+                "deep-pipeline methods need a reducer with an '.array' reduction (all "
+                "core.reduce strategies have one; attach reducer.array on custom reducers)"
+            )
+        if replace_spmv_fn is None:
+            replace_spmv_fn = spmv_fn
+        lanes = b.dim() == 2
+        k = b.shape[0] if lanes else 1
+        dtype = b.dtype
+        acc = torch.promote_types(dtype, torch.float32)
+        S_acc = S.to(acc)
+
+        # split preconditioning: solve At xt = bt with At = D^-1/2 A D^-1/2
+        if inv_diag is not None:
+            isd = torch.sqrt(inv_diag)
+            dsq = torch.where(isd > 0, 1.0 / torch.where(isd > 0, isd, torch.ones_like(isd)),
+                              torch.zeros_like(isd))
+        else:
+            isd = dsq = None
+
+        def _split(v):
+            return isd * v if isd is not None else v
+
+        def _At(v, raw=spmv_fn):
+            return _split(raw(_split(v)))
+
+        def _rows(v):  # (k, ...) view of a single solve's tensors
+            return v if lanes else v.unsqueeze(0)
+
+        bt = _split(b)
+        xt = dsq * x0 if dsq is not None else x0
+        rt = bt - _At(xt)
+        # the convergence metric of run_pipecg: ||u|| with u = D^-1 r, i.e.
+        # rt^T D^-1 rt; one set-up reduction
+        nn_part = dot_f32(rt, inv_diag * rt if inv_diag is not None else rt)
+        norm = _rows(torch.sqrt(reducer(nn_part, nn_part, nn_part)[2])).cpu()
+        thresh = torch.maximum(torch.tensor(atol, dtype=norm.dtype),
+                               torch.tensor(rtol, dtype=norm.dtype) * norm)
+        # +1 slack slot: writes of masked (stopped) inner steps land at
+        # maxiter + 1 and are cut off at the end
+        hist = torch.full((k, maxiter + 2), math.nan, dtype=torch.float32)
+        hist[:, 0] = norm.to(torch.float32)
+        it = torch.zeros(k, dtype=torch.int32)
+        lane_ix = torch.arange(k)
+        rr_outer = max(1, -(-replace_every // l)) if replace_every > 0 else 0
+        p = rt
+        outer = 0
+
+        while bool(((norm > thresh) & (it < maxiter)).any()):
+            # Z-basis recurrences: 2l-1 SPMVs, no extra reduction
+            basis = [p]
+            for _ in range(l):
+                basis.append(_At(basis[-1]))
+            basis.append(rt)
+            for _ in range(l - 1):
+                basis.append(_At(basis[-1]))
+            V = torch.stack(basis, dim=-2)  # (m, R) or (k, m, R)
+            Va = _rows(V.to(acc))
+
+            # the one global reduction per l iterations
+            G_loc = _per_lane(lambda v: v @ v.T, Va)
+            if inv_diag is not None:
+                H_loc = _per_lane(lambda v: (v * inv_diag.to(acc)) @ v.T, Va)
+                GH = reduce_array(torch.stack([G_loc, H_loc], dim=1)).cpu()
+                G, H = GH[:, 0], GH[:, 1]
+            else:
+                G = H = reduce_array(G_loc).cpu()
+
+            # l CG iterations in coordinates, on the host (no communication)
+            pc = torch.zeros(k, m, dtype=acc)
+            pc[:, 0] = 1.0
+            rc = torch.zeros(k, m, dtype=acc)
+            rc[:, l + 1] = 1.0
+            xc = torch.zeros(k, m, dtype=acc)
+            for _ in range(l):
+                active = (norm > thresh) & (it < maxiter)
+                sc = pc @ S_acc.T  # coordinates of At p
+                rr = _quad(rc, G, rc)
+                alpha = rr / _quad(pc, G, sc)
+                xc_n = xc + alpha[:, None] * pc
+                rc_n = rc - alpha[:, None] * sc
+                beta = _quad(rc_n, G, rc_n) / rr
+                pc_n = rc_n + beta[:, None] * pc
+                norm_n = torch.sqrt(torch.clamp(_quad(rc_n, H, rc_n), min=0.0))
+                xc = torch.where(active[:, None], xc_n, xc)
+                rc = torch.where(active[:, None], rc_n, rc)
+                pc = torch.where(active[:, None], pc_n, pc)
+                norm = torch.where(active, norm_n.to(norm.dtype), norm)
+                slot = torch.where(active, it.long() + 1, maxiter + 1)
+                hist[lane_ix, slot] = norm_n.to(torch.float32)
+                it = it + active.to(torch.int32)
+
+            # recover the vectors from their coordinates
+            def combine(c):
+                c = c.to(device=V.device, dtype=dtype)
+                out = _per_lane(lambda c_, v_: c_ @ v_, c, _rows(V))
+                return out if lanes else out[0]
+
+            xt = xt + combine(xc)
+            rt = combine(rc)
+            p = combine(pc)
+            outer += 1
+            if rr_outer and outer % rr_outer == 0:
+                # residual replacement at outer-step cadence: re-derive the
+                # true split residual at full precision
+                rt = bt - _At(xt, raw=replace_spmv_fn)
+
+        dev = b.device
+        x = _split(xt)  # back-transform: x = D^-1/2 xt
+        out = (it.to(dev), x, norm.to(dev), (norm <= thresh).to(dev),
+               hist[:, : maxiter + 1].to(dev))
+        if not lanes:
+            out = (out[0][0], x, out[2][0], out[3][0], out[4][0])
+        return (*out, outer * l)
+
+    run_deep_pipecg.pipeline_depth = l
+    run_deep_pipecg.spmvs_per_iteration = (2 * l - 1) / l
+    return run_deep_pipecg

@@ -2,13 +2,21 @@
 
 Thin CLI over the plan/execute API: builds one ``repro_torch.plan``
 (printed via ``plan.describe()``), then solves ``A x = A x*`` with
-``x* = ones / sqrt(N)``. Single device; ``--method`` pcg, chronopoulos
-or pipecg. Matrices: ``poisson7/27/125:n``, ``synthetic:N,nnz_per_row``
-and the Table-I names (``Queen_4147:scale``), all in DIA form. Runs on
-CUDA unless ``--device cpu`` is given. ``--rhs K`` serves K right-hand
-sides through the same plan (``plan.solve_batched``) and prints the
-plan's runner count (``traces=``; expect 2: the single solve and the
-K-batch).
+``x* = ones / sqrt(N)``. ``--method`` pcg, chronopoulos or pipecg on one
+device, or a distributed method (h1, h2, h3, h4, pl2, pl3) over
+``--shards`` devices: ``--devices`` lists them (default: the card for
+shard 0 and the host's cores for the rest, the paper's CPU+GPU layout),
+``--partition nnz`` with ``--weights`` gives the performance model's
+split (relative speeds, e.g. from ``core.perfmodel.measure_spmv_time``),
+``--sub`` the pods of h4. Matrices:
+``poisson7/27/125:n``, ``synthetic:N,nnz_per_row`` and the Table-I names
+(``Queen_4147:scale``), all in DIA form. Runs on CUDA unless ``--device
+cpu`` is given. ``--rhs K`` serves K right-hand sides through the same
+plan (``plan.solve_batched``) and prints the plan's runner count
+(``traces=``; expect 2: the single solve and the K-batch).
+
+    python -m repro_torch.launch.solve --matrix poisson27:12 --device cpu \
+        --method h3 --shards 4 --devices cpu,cpu,cpu,cpu --partition nnz --weights 2,1,1,1
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ if "torch" not in sys.modules:
 
 import torch  # noqa: E402
 
+from ..core.distributed import method_names  # noqa: E402
 from ..plan import plan, solver_names  # noqa: E402
 from ..sparse import poisson7, poisson27, poisson125, spmv, synthetic_spd_dia, table1_matrix  # noqa: E402,E501
 
@@ -60,6 +69,17 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--rhs", type=int, default=1,
                     help="number of right-hand sides served through the one plan")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="distributed methods: the number of shards")
+    ap.add_argument("--devices", default=None,
+                    help="distributed methods: comma-separated device per shard "
+                         "(default: cuda for shard 0, cpu for the rest)")
+    ap.add_argument("--partition", default="rows", choices=["rows", "nnz"],
+                    help="distributed methods: equal rows, or nnz in proportion to --weights")
+    ap.add_argument("--weights", default=None,
+                    help="distributed methods: comma-separated relative speeds")
+    ap.add_argument("--sub", type=int, default=None,
+                    help="distributed methods: ranks per pod (h4 needs it)")
     args = ap.parse_args(argv)
 
     A = build_matrix(args.matrix, device=args.device)
@@ -69,7 +89,17 @@ def main(argv=None):
           f"device={A.device}")
 
     kw = {}
-    if args.method == "pipecg":
+    if args.method in method_names() or args.method == "pipecg_distributed":
+        devices = (tuple(args.devices.split(",")) if args.devices
+                   else ("cuda",) + ("cpu",) * (args.shards - 1))
+        kw = {"shards": args.shards, "devices": devices, "partition": args.partition,
+              "sub": args.sub, "replace_every": args.replace_every}
+        if args.weights:
+            kw["weights"] = [float(w) for w in args.weights.split(",")]
+    elif args.shards > 1:
+        ap.error(f"--method {args.method} is single-device; with --shards use one of "
+                 f"{method_names()}")
+    elif args.method == "pipecg":
         kw = {"replace_every": args.replace_every, "spmv_engine": args.spmv_engine}
     p = plan(A, method=args.method, engine=args.engine, M="jacobi", atol=args.atol,
              rtol=args.rtol, maxiter=args.maxiter, **kw)

@@ -1,10 +1,13 @@
-"""repro_torch.obs — solver telemetry: spans and metrics.
+"""repro_torch.obs — solver telemetry: spans, metrics, solve reports.
 
 Off by default and free while off:
 
     import repro_torch.obs as obs
 
     obs.enable()                      # spans record, metrics count
+    p = repro_torch.plan(A, method="pipecg")
+    res = p.solve(b)                  # synchronised + timed under a span
+    print(p.last_report.summary())    # curve, launches/step, GB/s, ...
     srv.submit(A, b).result()         # serving counters, histograms, spans
     print(obs.format_metrics())       # plan cache, buckets, queue waits, ...
     obs.dump_spans("spans.json"); obs.dump_jsonl("metrics.jsonl")
@@ -14,8 +17,11 @@ Off by default and free while off:
   ``trace_scope`` is that range alone.
 * ``metrics`` — process-local counters/gauges/histograms with JSON-lines
   and human-readable sinks; strict no-ops while disabled.
-* ``report``  — ``iterations_from_history`` (per-rhs counts from the NaN
-  tails). The JAX package's ``SolveReport`` waits for the telemetry slice.
+* ``report``  — :class:`SolveReport` built from a ``SolveResult`` and the
+  plan, :func:`convergence_curve` (the one NaN-trim implementation),
+  ``iterations_from_history`` (per-rhs counts from the NaN tails), the
+  environment fingerprint (torch, CUDA, the card, its power limit) and
+  the kernel launch census.
 """
 from __future__ import annotations
 
@@ -32,7 +38,16 @@ from .metrics import (  # noqa: F401
     reset_metrics,
     snapshot,
 )
-from .report import iterations_from_history  # noqa: F401
+from .report import (  # noqa: F401
+    SolveReport,
+    comparable_env,
+    convergence_curve,
+    env_fingerprint,
+    iterations_from_history,
+    plan_launches_per_iteration,
+    solve_report,
+    structural_bytes_per_elem,
+)
 from .trace import (  # noqa: F401
     Span,
     clear_spans,
@@ -57,5 +72,7 @@ __all__ = [
     "reset_metrics", "format_metrics", "dump_jsonl",
     "Counter", "Gauge", "Histogram",
     # report
-    "iterations_from_history",
+    "SolveReport", "solve_report", "convergence_curve",
+    "iterations_from_history", "env_fingerprint", "comparable_env",
+    "structural_bytes_per_elem", "plan_launches_per_iteration",
 ]

@@ -12,7 +12,8 @@ as the JAX package's ``runtime/fault_tolerance.py``.
   rebuilds the initial state from its seed (``reinit``), since the steps
   have updated the state it was given in place.
 
-The ``StragglerTracker`` re-export waits with ``core/perfmodel.py`` (ROADMAP).
+* straggler mitigation: ``core.perfmodel.StragglerTracker``, re-exported
+  here for runtime users, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -29,8 +30,9 @@ from ..ckpt.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from ..core.perfmodel import StragglerTracker  # re-export for runtime users
 
-__all__ = ["CheckpointManager", "run_with_recovery"]
+__all__ = ["CheckpointManager", "run_with_recovery", "StragglerTracker"]
 
 
 @dataclass

@@ -85,8 +85,12 @@ def test_describe_keeps_jax_keys_and_names_the_core():
         k: jd[k] for k in keys - {"core", "spmv_engine"}}
     assert repro_torch.plan(A, engine="fused_iter").describe()["core"] == "fused_iter"
     assert repro_torch.plan(A, engine="cuda").describe()["spmv_engine"] == "auto"
-    with pytest.raises(ValueError, match="not ported"):
-        repro_torch.plan(A, method="h3")  # the distributed methods wait for their slice
+    # a distributed method describes its mesh with JAX's keys (one host shard here)
+    dkeys = {"method", "shards", "shard_bounds", "rows_per_shard", "reducer", "spmv_strategy",
+             "pipeline_depth", "sub", "replace_every", "distributed"}
+    dd = repro_torch.plan(A, method="h3", devices=("cpu",)).describe()
+    jdd = repro.plan(J, method="h3").describe()
+    assert {k: dd[k] for k in dkeys} == {k: jdd[k] for k in dkeys}
     with pytest.raises(TypeError, match="does not accept"):
         repro_torch.plan(A, method="pcg", tile=256)  # tile is pipecg's only
     with pytest.raises(ValueError, match="unknown iteration engine"):
