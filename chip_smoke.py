@@ -139,6 +139,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``SolveReport`` of one Method 3 solve, whose environment names the card
    and its power limit. The kernels line gives spmv_dia, fused_vma and
    their lane entries a ``hybrid_launches`` count from (b) and (d).
+8. LM serving at full width, after 7, through ``repro_torch.serve.generate``
+   and ``build_model(cfg)``'s ``prefill``, ``init_cache`` and ``decode``:
+   internlm2-1.8b and olmoe-1b-7b in bf16 from seeded random weights,
+   batch 8 x 512-token seeded prompts, 64 greedy tokens. Each model:
+   two ``generate`` calls give equal tokens; prefill ms, the median ms per
+   decode step (CUDA events), decode tokens/s and peak memory, beside the
+   step's bytes bound (``launch.serve_lm.decode_step_bytes`` at
+   ``launch/roofline.py``'s HBM rate); torch.profiler over 4 decode steps
+   (kernel time by class, the card's idle share). internlm2-1.8b: a
+   496-token prefill, then the last 16 prompt tokens teacher-forced
+   through ``decode``, within 5e-2 per row (||d|| / ||ref||) of the full
+   forward's logits. olmoe-1b-7b: finite logits; then a 2-layer olmoe at
+   full width in f32 on a (2, 32) prompt with 8 new tokens: the card's
+   greedy tokens equal the host CPU's, logits within 1e-4 per row. No
+   kernel of the port lies on this path (in the JAX package either): the
+   phase fails if one launches.
 
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -185,6 +201,19 @@ PLAIN_STEPS = 5
 # v differ by a few ulp and flip bf16 roundings of a few parameters; that
 # moves a loss of ~11.4 by far less than this
 PLAIN_LOSS_ATOL = 1e-2
+# LM serving (phase 8): batch 8 x 512-token prompts, 64 greedy tokens
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
+TF_STEPS = 16  # internlm2-1.8b: the last 16 prompt positions decoded teacher-forced
+PROF_STEPS = 4  # decode steps under torch.profiler, per model
+# bf16 teacher-forced decode against the full forward, largest per-row
+# ||d|| / ||ref|| over the vocabulary: the two paths round to bf16 after
+# differently shaped products (8 rows against 4,096; the cache's softmax
+# split from the current token's column), which moves a row of logits by
+# about a bf16 ulp per layer; a wrong position or mask moves it by O(1)
+TF_ROW = 5e-2
+# the 2-layer f32 olmoe on the card against the host (TF32 off): the same
+# f32 math summed in another order
+F32_ROW = 1e-4
 BASELINE_BAND = 2                  # pcg/chronopoulos vs pipecg iterations (tests/test_solvers.py)
 REPLACES = {
     "spmv_dia": "src/repro/kernels/spmv_dia/kernel.py:37",
@@ -2110,6 +2139,225 @@ def main() -> None:
     log(f"phase 7 took {hybrid['phase_s']:.1f} s")
     record["hybrid"] = hybrid
     del p1, p3, pb, A7, b7, B7, A, b
+
+    # ------------------------------------------------------------------ 8
+    # LM serving at full width: internlm2-1.8b and olmoe-1b-7b in bf16
+    import dataclasses
+
+    from repro_torch.launch.roofline import HW
+    from repro_torch.launch.serve_lm import decode_step_bytes
+    from repro_torch.serve import ServeConfig, generate
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    wrappers = {**counters, "fused_adam": fused_adamw, "flash_attn": flash_attention}
+    for w in wrappers.values():
+        w.launches = 0
+    sync()
+
+    def rows_err(got, want) -> float:
+        """The largest per-row ||got - want|| / ||want|| over the last axis."""
+        d = got.double() - want.double()
+        return float((d.norm(dim=-1) / want.double().norm(dim=-1).clamp_min(1e-30)).max())
+
+    def host_copy(api_, params_):
+        host = api_.empty_params("cpu")
+        host.load_state_dict({k_: v_.cpu() for k_, v_ in params_.state_dict().items()})
+        return host
+
+    def serve_cell(arch):
+        """Seeded random weights and prompts; generate twice (equal tokens);
+        prefill ms, ms per decode step (CUDA events, greedy tokens fed back),
+        tokens/s, peak memory and the decode step's bytes bound."""
+        cfg = get_config(arch)
+        api = build_model(cfg)
+        held = torch.cuda.memory_allocated()  # what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.init_params(make_generator(0, dev))
+        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
+                                generator=make_generator(1, dev), dtype=torch.int32)
+        sc = ServeConfig(max_new_tokens=LM_NEW)
+        sync()
+        init_s = time.perf_counter() - t0
+        walls, outs = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            outs.append(generate(api, params, {"tokens": prompts}, sc))
+            sync()
+            walls.append(time.perf_counter() - t0)
+        if not torch.equal(outs[0], outs[1]):
+            fail(f"{arch}: two generate calls gave different tokens")
+        out = outs[0]
+        if out.shape != (LM_BATCH, LM_PROMPT + LM_NEW) or not torch.equal(out[:, :LM_PROMPT],
+                                                                          prompts):
+            fail(f"{arch}: generate returned {tuple(out.shape)} or changed the prompt")
+        if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+            fail(f"{arch}: a generated token lies outside the vocabulary")
+        batch = {"tokens": prompts}
+        with torch.no_grad():
+            prefill_ms = timed(lambda: api.prefill(params, batch), 1, 3)
+            logits, pf = api.prefill(params, batch)
+            cache = api.init_cache(LM_BATCH, LM_PROMPT + LM_NEW, device=dev)
+            cache.k[:, :, :LM_PROMPT], cache.v[:, :, :LM_PROMPT] = pf.k, pf.v
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            finite = bool(torch.isfinite(logits).all())
+            del logits, pf
+            step_ms = []
+            for i in range(LM_NEW):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                lg, cache = api.decode(params, tok, cache, LM_PROMPT + i)
+                tok = lg[:, -1].argmax(-1, keepdim=True)
+                ev[1].record()
+                step_ms.append(ev)
+            sync()
+            step_ms = [a.elapsed_time(e_) for a, e_ in step_ms]
+            finite &= bool(torch.isfinite(lg).all())
+        if not finite:
+            fail(f"{arch}: prefill or decode logits are not finite")
+        ms_step = statistics.median(step_ms)
+        bound_bytes = decode_step_bytes(cfg, LM_BATCH, LM_PROMPT + LM_NEW)
+        bound_ms = bound_bytes / HW["hbm_bw"] * 1e3
+        peak = torch.cuda.max_memory_allocated() - held
+        rec = {"arch": arch, "n_params": api.n_params(), "batch": LM_BATCH,
+               "prompt": LM_PROMPT, "new_tokens": LM_NEW, "generate_s": walls,
+               "prefill_ms": prefill_ms, "decode_step_ms": step_ms, "ms_per_decode_step": ms_step,
+               "decode_tokens_per_s": LM_BATCH / (ms_step / 1e3),
+               "decode_bound_bytes": bound_bytes, "decode_bound_ms": bound_ms,
+               "peak_memory_bytes": peak, "tokens_row0": out[0, LM_PROMPT:].tolist(),
+               "init_s": init_s, "held_by_earlier_phases_bytes": held}
+        log(f"{arch} ({api.n_params():,} parameters, bf16; init {init_s:.1f} s) served "
+            f"{LM_BATCH} x {LM_PROMPT} prompts, {LM_NEW} greedy tokens: generate {walls[0]:.3f} s, "
+            f"again {walls[1]:.3f} s (equal tokens; {LM_BATCH * LM_NEW / walls[1]:.1f} tokens/s "
+            f"with the prefill); prefill {prefill_ms:.3f} ms; decode step {ms_step:.4f} ms (median "
+            f"of {LM_NEW}; bound {bound_ms:.4f} ms: {bound_bytes:,} bytes at "
+            f"{HW['hbm_bw'] / 1e12:.2f} TB/s), {LM_BATCH / (ms_step / 1e3):.1f} tokens/s; peak "
+            f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB earlier phases hold")
+
+        # where a decode step's time goes: torch.profiler over PROF_STEPS more steps
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            pos0 = LM_PROMPT + LM_NEW - PROF_STEPS
+            cache.k[:, :, pos0:], cache.v[:, :, pos0:] = 0, 0
+            sync()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                for i in range(PROF_STEPS):
+                    lg, cache = api.decode(params, tok, cache, pos0 + i)
+                    tok = lg[:, -1].argmax(-1, keepdim=True)
+                sync()
+                wall = (time.perf_counter() - t1) * 1e3 / PROF_STEPS
+        by_class, busy = {}, 0.0
+        for evt in prof.key_averages():
+            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+                t_us = getattr(evt, "self_device_time_total", None)
+                t_us = evt.self_cuda_time_total if t_us is None else t_us
+                if t_us > 0:
+                    cls = kernel_class(evt.key)
+                    ms_, n_ = by_class.get(cls, (0.0, 0))
+                    by_class[cls] = (ms_ + t_us / 1e3 / PROF_STEPS, n_ + evt.count // PROF_STEPS)
+                    busy += t_us / 1e3 / PROF_STEPS
+        if busy:
+            rec["profile"] = {"step_wall_ms_profiled": wall, "device_ms": busy,
+                              "idle_share": 1 - busy / ms_step,
+                              "by_class": {k_: {"ms": t_, "launches": n_} for k_, (t_, n_) in
+                                           sorted(by_class.items(), key=lambda kv: -kv[1][0])}}
+            log(f"  profiled decode step (mean of {PROF_STEPS}; host clock {wall:.3f} ms with the "
+                f"profiler on; {time.perf_counter() - t0:.1f} s with its set-up and tally): "
+                f"kernels busy {busy:.4f} ms, idle share {1 - busy / ms_step:.3f} of the "
+                f"{ms_step:.4f} ms step; " + ", ".join(
+                    f"{k_} {v_['ms']:.4f} ms x{v_['launches']}"
+                    for k_, v_ in rec["profile"]["by_class"].items()))
+        else:
+            rec["profile"] = "not measured: torch.profiler recorded no device time"
+            log(f"  profiled decode step: {rec['profile']}")
+        del cache
+        log(f"  {time.perf_counter() - t8:.1f} s into phase 8")
+        return api, params, prompts, rec
+
+    serving = {}
+    # internlm2-1.8b: teacher-forced decode against the full forward
+    api, params, prompts, serving["internlm2-1.8b"] = serve_cell("internlm2-1.8b")
+    tf0 = LM_PROMPT - TF_STEPS
+    with torch.no_grad():
+        full = api.forward(params, {"tokens": prompts})[:, tf0:]
+        _, pf = api.prefill(params, {"tokens": prompts[:, :tf0]})
+        cache = api.init_cache(LM_BATCH, LM_PROMPT, device=dev)
+        cache.k[:, :, :tf0], cache.v[:, :, :tf0] = pf.k, pf.v
+        del pf
+        forced = []
+        for pos in range(tf0, LM_PROMPT):
+            lg, cache = api.decode(params, prompts[:, pos:pos + 1], cache, pos)
+            forced.append(lg)
+        forced = torch.cat(forced, dim=1)
+    tf_err = rows_err(forced, full)
+    same_argmax = float((forced.argmax(-1) == full.argmax(-1)).float().mean())
+    log(f"  teacher-forced decode of positions {tf0}-{LM_PROMPT - 1} after a {tf0}-token "
+        f"prefill against the full forward: largest per-row ||d||/||ref|| {tf_err:.3e} "
+        f"(limit {TF_ROW:.0e}); argmax equal at {same_argmax:.4f} of the positions")
+    if not tf_err <= TF_ROW:
+        fail(f"internlm2-1.8b: teacher-forced decode differs from the forward by {tf_err:.3e}")
+    serving["internlm2-1.8b"].update(teacher_forced_row_err=tf_err,
+                                     teacher_forced_argmax_equal=same_argmax)
+    log(f"  {time.perf_counter() - t8:.1f} s into phase 8")
+    del api, params, prompts, full, forced, cache, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    api, params, prompts, serving["olmoe-1b-7b"] = serve_cell("olmoe-1b-7b")
+    del api, params, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a 2-layer olmoe-1b-7b at full width in f32 (TF32 off): the card against the host
+    cfg2 = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=2, dtype="float32")
+    api = build_model(cfg2)
+    t0 = time.perf_counter()
+    params = api.init_params(make_generator(0, dev))
+    host = host_copy(api, params)
+    log(f"2-layer f32 olmoe-1b-7b: init and host copy {time.perf_counter() - t0:.1f} s")
+    prompts = torch.randint(0, cfg2.vocab_size, (2, 32), device=dev,
+                            generator=make_generator(2, dev), dtype=torch.int32)
+    sc = ServeConfig(max_new_tokens=8)
+    t0 = time.perf_counter()
+    got = generate(api, params, {"tokens": prompts}, sc).cpu()
+    want = generate(api, host, {"tokens": prompts.cpu()}, sc)
+    with torch.no_grad():
+        lg_c, pf_c = api.prefill(params, {"tokens": prompts})
+        lg_h, pf_h = api.prefill(host, {"tokens": prompts.cpu()})
+        nxt = lg_h[:, -1:].argmax(-1)
+
+        def one_step(p_, pf_, d_):
+            c_ = api.init_cache(2, 33, device=d_)
+            c_.k[:, :, :32], c_.v[:, :, :32] = pf_.k, pf_.v
+            return api.decode(p_, nxt.to(d_), c_, 32)[0].cpu()
+
+        errs_f32 = [rows_err(lg_c.cpu(), lg_h),
+                    rows_err(one_step(params, pf_c, dev), one_step(host, pf_h, "cpu"))]
+    f32_s = time.perf_counter() - t0
+    log(f"2-layer olmoe-1b-7b, f32, full width: the card's greedy tokens "
+        f"{'equal' if torch.equal(got, want) else 'DIFFER FROM'} the host's "
+        f"({got[:, 32:].tolist()}); logits per-row ||d||/||ref||: prefill {errs_f32[0]:.3e}, "
+        f"one decode step {errs_f32[1]:.3e} (limit {F32_ROW:.0e}); {f32_s:.1f} s")
+    if not torch.equal(got, want):
+        fail(f"2-layer f32 olmoe: card tokens {got.tolist()} != host tokens {want.tolist()}")
+    if not max(errs_f32) <= F32_ROW:
+        fail(f"2-layer f32 olmoe: card and host logits differ by {max(errs_f32):.3e}")
+    serving["olmoe-2layer-f32"] = {"tokens": got.tolist(), "prefill_row_err": errs_f32[0],
+                                   "decode_row_err": errs_f32[1], "seconds": f32_s}
+    del api, params, host, lg_c, pf_c, lg_h, pf_h
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launched = {k_: w.launches for k_, w in wrappers.items() if w.launches}
+    if launched:
+        fail(f"LM serving launched kernels of the port, where no path calls one: {launched}")
+    serving["phase_s"] = time.perf_counter() - t8
+    log(f"LM serving launched no kernel of the port (none lies on its path, in the JAX package "
+        f"either); phase 8 took {serving['phase_s']:.1f} s")
+    record["lm_serving"] = serving
 
     # ------------------------------------------------------------------ 6
     # the path whose run each kernel's launches are read from (None: the

@@ -1,8 +1,9 @@
 """Architecture configs: one module per ported architecture (+ shapes).
 
 Use ``get_config("<arch-id>")`` / ``list_configs()`` / ``SHAPES``. The
-four dense configs are registered; the MoE, SSM, hybrid, encoder-decoder
-and VLM configs wait with their families (ROADMAP).
+four dense configs and the two MoE configs are registered; the SSM,
+hybrid, encoder-decoder and VLM configs wait with their families
+(ROADMAP).
 """
 from .base import SHAPES, ArchConfig, ShapeConfig, get_config, list_configs, reduced
 
@@ -13,7 +14,14 @@ def _load_all():
     global _LOADED
     if _LOADED:
         return
-    from . import internlm2_1_8b, qwen2_5_14b, qwen3_8b, stablelm_1_6b  # noqa: F401
+    from . import (  # noqa: F401
+        granite_moe_1b_a400m,
+        internlm2_1_8b,
+        olmoe_1b_7b,
+        qwen2_5_14b,
+        qwen3_8b,
+        stablelm_1_6b,
+    )
 
     _LOADED = True
 

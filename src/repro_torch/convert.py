@@ -29,6 +29,7 @@ __all__ = [
     "lm_params_from_arrays",
     "lm_arrays_from_params",
     "train_state_from_arrays",
+    "kv_cache_from_arrays",
 ]
 
 
@@ -122,7 +123,7 @@ def _fill(named: dict, arrays: dict, device: torch.device, what: str) -> None:
 
 def lm_params_from_arrays(cfg: ArchConfig, tree: Mapping, *, device):
     """The port's parameters (a ``ParamTree``, in ``cfg.dtype``) from a
-    JAX-layout dense LM parameter tree of numpy arrays."""
+    JAX-layout LM parameter tree of numpy arrays (dense or MoE)."""
     from .models.zoo import build_model
 
     params = build_model(cfg).empty_params(device)
@@ -183,3 +184,16 @@ def train_state_from_arrays(cfg: ArchConfig, state, *, device):
                        prev_norm=scalar(state.opt.prev_norm, torch.float32)),
         step=scalar(state.step, torch.int32),
     )
+
+
+def kv_cache_from_arrays(k: np.ndarray, v: np.ndarray, *, device):
+    """The port's ``KVCache`` from the JAX package's (L, B, S, KV, hd) k and
+    v arrays (bf16 carried bit for bit)."""
+    from .models.attention import KVCache
+
+    k, v = _host_tensor(k), _host_tensor(v)
+    if k.ndim != 5 or k.shape != v.shape:
+        raise ValueError(
+            f"k {tuple(k.shape)} and v {tuple(v.shape)} must both be (L, B, S, KV, hd)")
+    dev = resolve_device(device)
+    return KVCache(k=k.to(dev), v=v.to(dev))

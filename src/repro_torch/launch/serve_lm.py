@@ -1,0 +1,85 @@
+"""LM serving launcher: ``python -m repro_torch.launch.serve_lm --arch <id> ...``
+
+The port's counterpart of ``examples/serve_lm.py``: random parameters from
+a seeded generator (no weights are downloaded), a batch of seeded random
+prompts, one ``generate`` call (prefill, then the decode loop). Without
+``--full`` it serves the reduced config (same family and topology, tiny
+widths); ``--full`` the full config on one card. ``--device`` defaults to
+``cuda``; ``cpu`` runs the plain PyTorch path. On the card it also prints
+the least time a decode step could take: the bytes it must read
+(``decode_step_bytes``) at ``launch/roofline.py``'s HBM rate.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from ..configs import get_config, list_configs, reduced
+from ..configs.base import ArchConfig
+from ..kernels.common import resolve_device
+from ..models import build_model, make_generator
+from ..models.common import DTYPES
+from ..serve import ServeConfig, generate
+from .roofline import HW
+
+
+def decode_step_bytes(cfg: ArchConfig, batch: int, max_seq: int) -> int:
+    """The HBM bytes one decode step of the dense or MoE family must move as
+    the code runs it: every weight read once (the embedding table only at
+    the batch's rows, unless the head is tied to it; every expert of an MoE
+    layer, since the batched expert products read them all), the whole
+    max_seq cache of every layer read once, the new k/v and the logits
+    written once."""
+    item = DTYPES[cfg.dtype].itemsize
+    head = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    weights = build_model(cfg).n_params() - head + batch * cfg.d_model
+    kv_per_pos = 2 * cfg.n_layers * batch * cfg.n_kv_heads * cfg.head_dim_
+    return item * (weights + kv_per_pos * (max_seq + 1) + batch * cfg.vocab_size)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b", choices=list_configs())
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--full", action="store_true", help="the full config, on one card")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch) if args.full else reduced(get_config(args.arch))
+    api = build_model(cfg)
+    params = api.init_params(make_generator(args.seed, dev))
+    print(f"arch={cfg.name} family={cfg.family} params={api.n_params():,} full={args.full} "
+          f"device={dev}")
+    gen = make_generator(args.seed + 1, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
+                            device=dev, dtype=torch.int32)
+    sc = ServeConfig(max_new_tokens=args.new_tokens, temperature=args.temperature)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    out = generate(api, params, {"tokens": prompts}, sc, generator=gen)
+    sync()
+    dt = time.perf_counter() - t0
+    toks = args.batch * args.new_tokens
+    print(f"generated {toks} tokens in {dt:.2f}s ({toks / dt:.1f} tok/s, prefill included)")
+    if dev.type == "cuda":
+        bound = decode_step_bytes(cfg, args.batch, args.prompt_len + args.new_tokens)
+        print(f"decode step bound: {bound / HW['hbm_bw'] * 1e3:.4f} ms ({bound:,} bytes at "
+              f"{HW['hbm_bw'] / 1e12:.2f} TB/s)")
+    for i in range(min(args.batch, 2)):
+        print(f"  seq {i}: ...{out[i, args.prompt_len - 4:].tolist()}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,9 @@
-"""repro_torch.serve — batched + async solver serving over the plan cache.
+"""repro_torch.serve — LM serving, and batched + async solver serving over
+the plan cache.
 
-* ``engine``    — ``SolverEngine``: synchronous bucket coalescing over one
-  pinned plan.
+* ``engine``    — ``generate`` (prefill, then a greedy or sampled decode
+  loop over the model's KV cache) and ``make_decode_step``;
+  ``SolverEngine``: synchronous bucket coalescing over one pinned plan.
 * ``queue``     — bounded admission queue + bucket-closing batch policy
   (full OR timeout), explicit backpressure (``QueueFull``), deadlines.
 * ``router``    — pool of warm ``SolverPlan``s keyed by (operator
@@ -10,11 +12,15 @@
 * ``warmstart`` — JSON plan manifests: a fresh replica rebuilds every plan
   and its runners at startup ("hot in seconds").
 * ``server``    — ``SolverServer``: the façade wiring them together.
-
-The JAX package's LM serving (``generate``, ``make_decode_step``) waits
-for the LM-serving slice.
 """
-from .engine import SolverEngine, bucket_waste, record_bucket
+from .engine import (
+    ServeConfig,
+    SolverEngine,
+    bucket_waste,
+    generate,
+    make_decode_step,
+    record_bucket,
+)
 from .queue import DeadlineExceeded, QueueFull, RequestQueue, ServerClosed, SolveRequest
 from .router import PlanEntry, PlanPool, pool_key, tolerance_bucket
 from .server import ServeResult, SolverServer
@@ -32,6 +38,7 @@ __all__ = [
     "PlanPool",
     "QueueFull",
     "RequestQueue",
+    "ServeConfig",
     "ServeResult",
     "ServerClosed",
     "SolveRequest",
@@ -39,7 +46,9 @@ __all__ = [
     "SolverServer",
     "bucket_waste",
     "build_operator",
+    "generate",
     "load_manifest",
+    "make_decode_step",
     "operator_spec",
     "pool_key",
     "record_bucket",

@@ -1,26 +1,122 @@
-"""Synchronous solver serving over one pinned plan.
+"""Batched serving engines.
 
-``SolverEngine`` wraps one ``repro_torch.plan`` — operator,
-preconditioner and pinned core are built at construction — and serves
-many right-hand sides: single solves run the plan's single-rhs runner,
-batches its lane-batched one, and ``max_batch`` coalesces arbitrary
-request batches into fixed-size zero-padded buckets, so steady-state
-traffic builds exactly two runners (single + bucket) whatever the
-arrival pattern. (The JAX package's LM half of this module, ``generate``
-and ``make_decode_step``, waits for the LM-serving slice.)
+LM serving: ``generate`` prefills a batch of prompts once, then decodes
+token by token (greedy, or sampled with a temperature) through the
+model's cache. JAX runs the decode loop as one ``lax.while_loop``; here
+it is a Python loop over ``api.decode`` that reads the device only to
+stop early once every row has emitted ``eos_id``.
+
+Solver serving: ``SolverEngine`` wraps one ``repro_torch.plan`` —
+operator, preconditioner and pinned core are built at construction — and
+serves many right-hand sides: single solves run the plan's single-rhs
+runner, batches its lane-batched one, and ``max_batch`` coalesces
+arbitrary request batches into fixed-size zero-padded buckets, so
+steady-state traffic builds exactly two runners (single + bucket)
+whatever the arrival pattern.
 """
 from __future__ import annotations
 
 import dataclasses
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..models.zoo import ModelApi
 from ..obs import metrics as _metrics
 from ..obs.trace import enabled as _obs_enabled, span as _span
 
-__all__ = ["SolverEngine", "bucket_waste", "record_bucket"]
+__all__ = [
+    "ServeConfig",
+    "SolverEngine",
+    "bucket_waste",
+    "generate",
+    "make_decode_step",
+    "record_bucket",
+]
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0  # 0 => greedy
+    eos_id: int = -1          # -1 => never stop early
+
+
+def make_decode_step(api: ModelApi):
+    """decode_step(params, token, cache, pos): one step of the model's decode."""
+
+    def decode_step(params, token, cache, pos):
+        return api.decode(params, token, cache, pos)
+
+    return decode_step
+
+
+def _sample(lg: torch.Tensor, temperature: float, generator: torch.Generator) -> torch.Tensor:
+    """Greedy at temperature 0, else one draw from softmax(lg / temperature)
+    by Gumbel-max, as ``jax.random.categorical`` draws."""
+    if temperature <= 0.0:
+        return torch.argmax(lg, dim=-1).to(torch.int32)
+    u = torch.rand(lg.shape, generator=generator, device=lg.device)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
+    return torch.argmax(lg / temperature + gumbel, dim=-1).to(torch.int32)
+
+
+@torch.no_grad()
+def generate(api: ModelApi, params, batch: dict, sc: ServeConfig = ServeConfig(),
+             generator: Optional[torch.Generator] = None, poll_every: int = 8) -> torch.Tensor:
+    """Prefill on batch["tokens"] (B, T), then generate sc.max_new_tokens
+    more on the parameters' device (the prompt is moved there). Returns
+    (B, T + max_new_tokens) int32: the prompt, the prefill's argmax, then
+    the decoded tokens but the last.
+
+    A row that has emitted ``eos_id`` repeats its last token; once every
+    row has, the loop stops and the rest stays 0, as JAX's ``while_loop``
+    leaves it. Every step writes 0 where all rows were done before it, so
+    the host's check of ``done`` every ``poll_every`` steps only ends the
+    loop early and never changes the result. ``generator`` (on the
+    parameters' device; seed 0 if None) draws the samples where JAX takes
+    ``key``.
+    """
+    dev = next(params.parameters()).device
+    tokens = batch["tokens"].to(dev)
+    batch = {**batch, "tokens": tokens}
+    B, T = tokens.shape
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+
+    logits, pf_cache = api.prefill(params, batch)
+    cache = _copy_prefill(api, api.init_cache(B, T + sc.max_new_tokens, device=dev), pf_cache,
+                          T, batch)
+    last = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    del logits, pf_cache
+
+    out = torch.zeros((B, sc.max_new_tokens), dtype=torch.int32, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    tok = last
+    for i in range(sc.max_new_tokens):
+        if sc.eos_id >= 0 and i and i % poll_every == 0 and bool(done.all()):
+            break
+        live = ~done.all()  # JAX's loop condition for this step
+        lg, cache = api.decode(params, tok[:, None], cache, T + i)
+        nxt = _sample(lg[:, 0].to(torch.float32), sc.temperature, generator)
+        nxt = torch.where(done, tok, nxt)
+        done = done | (nxt == sc.eos_id)
+        out[:, i] = torch.where(live, nxt, 0)
+        tok = nxt
+    return torch.cat([tokens.to(torch.int32), last[:, None], out[:, :-1]], dim=1)
+
+
+def _copy_prefill(api: ModelApi, cache, pf_cache, T: int, batch: dict):
+    """Splice the prefill's k/v into the first T positions of a max_seq
+    cache (in place)."""
+    if api.cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"family {api.cfg.family!r} is not ported yet (see ROADMAP)")
+    cache.k[:, :, :T] = pf_cache.k
+    cache.v[:, :, :T] = pf_cache.v
+    return cache
 
 
 def record_bucket(valid: int, size: int) -> None:

@@ -65,15 +65,19 @@ def make_train_step(api: ModelApi, tc: TrainConfig = TrainConfig(),
     tensors on the parameters' device."""
 
     def loss_fn(params, batch):
-        logits = api.forward(params, batch, remat=tc.remat)
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        out = api.forward(params, batch, remat=tc.remat)
+        if isinstance(out, tuple):  # the MoE family: (logits, aux)
+            logits, aux = out
+        else:
+            logits = out
+            aux = torch.zeros((), dtype=torch.float32, device=logits.device)
         nll = next_token_loss(logits, batch["tokens"], z_loss=tc.z_loss)
         return nll + tc.aux_weight * aux, nll, aux
 
     def grads_of(params, named, batch):
         loss, nll, aux = loss_fn(params, batch)
         grads = torch.autograd.grad(loss, list(named.values()))
-        return loss.detach(), nll.detach(), aux, dict(zip(named, grads))
+        return loss.detach(), nll.detach(), aux.detach(), dict(zip(named, grads))
 
     def compute_grads(params, batch):
         named = dict(params.named_parameters())
