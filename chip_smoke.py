@@ -155,6 +155,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    greedy tokens equal the host CPU's, logits within 1e-4 per row. No
    kernel of the port lies on this path (in the JAX package either): the
    phase fails if one launches.
+9. SSM and hybrid serving at full width, after 8, through the same entry
+   points: zamba2-2.7b (54 Mamba-2 blocks, one shared attention block
+   applied 9 times) and xlstm-1.3b (42 mLSTM + 6 sLSTM blocks) in bf16
+   from seeded random weights, phase 8's traffic (batch 8 x 512-token
+   prompts, 64 greedy tokens). Each model: two ``generate`` calls give
+   equal tokens; prefill ms, ms per decode step, tokens/s and peak memory
+   beside ``decode_step_bytes``'s bound (the recurrent states read and
+   written once); torch.profiler over 4 decode steps (kernel time by
+   class, launches per step, the idle share); a 256-token prefill (one
+   chunk), then positions 256-271 teacher-forced through ``decode``,
+   within 5e-2 per row of the full forward's logits with the weights in
+   f32 (TF32 off). In bf16 these random-weight models lie above that
+   limit from their own f32 forward at full depth (0.14 and 1.1 per row),
+   so the bf16 teacher-forced decode is held to BF16_FLOOR (1.5) x that
+   distance, both from the f32 forward and from the bf16 forward. Then
+   one group of each at full width in f32 (zamba2 with 6 Mamba blocks and
+   the shared block, xlstm with 7 mLSTM and 1 sLSTM) on (2, 256) prompts
+   of 3 seeds with 8 new tokens: the card's greedy tokens equal the host
+   CPU's, logits within 1e-4 per row (xlstm: 1e-3, F32_ROW_XLSTM). No
+   kernel of the port lies on this path either: the phase fails if one
+   launches.
 
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -203,7 +224,9 @@ PLAIN_STEPS = 5
 PLAIN_LOSS_ATOL = 1e-2
 # LM serving (phase 8): batch 8 x 512-token prompts, 64 greedy tokens
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
-TF_STEPS = 16  # internlm2-1.8b: the last 16 prompt positions decoded teacher-forced
+# positions decoded teacher-forced: internlm2-1.8b the prompt's last 16;
+# zamba2-2.7b and xlstm-1.3b the 16 after their first chunk (256)
+TF_STEPS = 16
 PROF_STEPS = 4  # decode steps under torch.profiler, per model
 # bf16 teacher-forced decode against the full forward, largest per-row
 # ||d|| / ||ref|| over the vocabulary: the two paths round to bf16 after
@@ -211,9 +234,23 @@ PROF_STEPS = 4  # decode steps under torch.profiler, per model
 # split from the current token's column), which moves a row of logits by
 # about a bf16 ulp per layer; a wrong position or mask moves it by O(1)
 TF_ROW = 5e-2
-# the 2-layer f32 olmoe on the card against the host (TF32 off): the same
-# f32 math summed in another order
+# the cut f32 models (a 2-layer olmoe, one group of zamba2 and of xlstm) on
+# the card against the host (TF32 off): the same f32 math summed in
+# another order. olmoe and zamba2 read up to 1.9e-5. The xlstm group
+# carries that rounding through 8 layers of gates: 9.5e-5 to 1.3e-4 over
+# prompt seeds 2-7 (launch.precision), and the host against itself on 1
+# thread against 8 already 4.7e-5; its limit sits 8x above the largest
+# sound reading, far below a fault's O(1)
 F32_ROW = 1e-4
+F32_ROW_XLSTM = 1e-3
+# prompt seeds of the one-group SSM and hybrid checks
+CARD_HOST_SEEDS = (2, 3, 4)
+# phase 9, bf16 at full depth: random-weight models whose bf16 forward
+# lies 0.14 (zamba2) and 1.1 (xlstm) per row from their own f32 forward.
+# The bf16 teacher-forced decode must lie no farther from the f32 forward,
+# nor from the bf16 forward, than BF16_FLOOR x that distance (readings:
+# 1.01x and 0.71x for zamba2, 1.00x and 0.34x for xlstm)
+BF16_FLOOR = 1.5
 BASELINE_BAND = 2                  # pcg/chronopoulos vs pipecg iterations (tests/test_solvers.py)
 REPLACES = {
     "spmv_dia": "src/repro/kernels/spmv_dia/kernel.py:37",
@@ -2144,9 +2181,11 @@ def main() -> None:
     # LM serving at full width: internlm2-1.8b and olmoe-1b-7b in bf16
     import dataclasses
 
+    from repro_torch.launch import precision
+    from repro_torch.launch.precision import as_f32, decode_vs_forward, host_copy, rows_err
     from repro_torch.launch.roofline import HW
     from repro_torch.launch.serve_lm import decode_step_bytes
-    from repro_torch.serve import ServeConfig, generate
+    from repro_torch.serve import ServeConfig, generate, prefill_cache
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2156,17 +2195,7 @@ def main() -> None:
         w.launches = 0
     sync()
 
-    def rows_err(got, want) -> float:
-        """The largest per-row ||got - want|| / ||want|| over the last axis."""
-        d = got.double() - want.double()
-        return float((d.norm(dim=-1) / want.double().norm(dim=-1).clamp_min(1e-30)).max())
-
-    def host_copy(api_, params_):
-        host = api_.empty_params("cpu")
-        host.load_state_dict({k_: v_.cpu() for k_, v_ in params_.state_dict().items()})
-        return host
-
-    def serve_cell(arch):
+    def serve_cell(arch, phase, t_phase):
         """Seeded random weights and prompts; generate twice (equal tokens);
         prefill ms, ms per decode step (CUDA events, greedy tokens fed back),
         tokens/s, peak memory and the decode step's bytes bound."""
@@ -2198,12 +2227,10 @@ def main() -> None:
         batch = {"tokens": prompts}
         with torch.no_grad():
             prefill_ms = timed(lambda: api.prefill(params, batch), 1, 3)
-            logits, pf = api.prefill(params, batch)
-            cache = api.init_cache(LM_BATCH, LM_PROMPT + LM_NEW, device=dev)
-            cache.k[:, :, :LM_PROMPT], cache.v[:, :, :LM_PROMPT] = pf.k, pf.v
+            logits, cache = prefill_cache(api, params, batch, LM_PROMPT + LM_NEW)
             tok = logits[:, -1].argmax(-1, keepdim=True)
             finite = bool(torch.isfinite(logits).all())
-            del logits, pf
+            del logits
             step_ms = []
             for i in range(LM_NEW):
                 ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -2239,8 +2266,7 @@ def main() -> None:
         # where a decode step's time goes: torch.profiler over PROF_STEPS more steps
         t0 = time.perf_counter()
         with torch.no_grad():
-            pos0 = LM_PROMPT + LM_NEW - PROF_STEPS
-            cache.k[:, :, pos0:], cache.v[:, :, pos0:] = 0, 0
+            pos0 = LM_PROMPT + LM_NEW - PROF_STEPS  # positions decoded again
             sync()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t1 = time.perf_counter()
@@ -2262,94 +2288,89 @@ def main() -> None:
         if busy:
             rec["profile"] = {"step_wall_ms_profiled": wall, "device_ms": busy,
                               "idle_share": 1 - busy / ms_step,
+                              "launches_per_step": sum(n_ for _, n_ in by_class.values()),
                               "by_class": {k_: {"ms": t_, "launches": n_} for k_, (t_, n_) in
                                            sorted(by_class.items(), key=lambda kv: -kv[1][0])}}
             log(f"  profiled decode step (mean of {PROF_STEPS}; host clock {wall:.3f} ms with the "
                 f"profiler on; {time.perf_counter() - t0:.1f} s with its set-up and tally): "
-                f"kernels busy {busy:.4f} ms, idle share {1 - busy / ms_step:.3f} of the "
-                f"{ms_step:.4f} ms step; " + ", ".join(
+                f"kernels busy {busy:.4f} ms in {rec['profile']['launches_per_step']} launches, "
+                f"idle share {1 - busy / ms_step:.3f} of the {ms_step:.4f} ms step; " + ", ".join(
                     f"{k_} {v_['ms']:.4f} ms x{v_['launches']}"
                     for k_, v_ in rec["profile"]["by_class"].items()))
         else:
             rec["profile"] = "not measured: torch.profiler recorded no device time"
             log(f"  profiled decode step: {rec['profile']}")
         del cache
-        log(f"  {time.perf_counter() - t8:.1f} s into phase 8")
+        log(f"  {time.perf_counter() - t_phase:.1f} s into phase {phase}")
         return api, params, prompts, rec
+
+    def teacher_forced(label, forced, full) -> dict:
+        """Fails where a teacher-forced row is beyond TF_ROW of the forward's."""
+        err = rows_err(forced, full)
+        same = float((forced.argmax(-1) == full.argmax(-1)).float().mean())
+        log(f"  {label}: teacher-forced decode of {forced.shape[1]} positions against the full "
+            f"forward: largest per-row ||d||/||ref|| {err:.3e} (limit {TF_ROW:.0e}); argmax "
+            f"equal at {same:.4f} of the positions")
+        if not err <= TF_ROW:
+            fail(f"{label}: teacher-forced decode differs from the forward by {err:.3e}")
+        return {"teacher_forced_row_err": err, "teacher_forced_argmax_equal": same}
+
+    def card_vs_host(label, cfg2, prompt_len, seeds=(2,), limit=F32_ROW) -> dict:
+        """A cut f32 model at full width (TF32 off) on a (2, prompt_len)
+        prompt of each seed: the card's 8 greedy tokens equal the host
+        CPU's, prefill and one decode step's logits within ``limit`` per
+        row (``launch.precision.card_vs_host``)."""
+        api = build_model(cfg2)
+        t0 = time.perf_counter()
+        params = api.init_params(make_generator(0, dev))
+        host = host_copy(api, params)
+        log(f"{label}: init and host copy {time.perf_counter() - t0:.1f} s")
+        out = {}
+        for seed in seeds:
+            prompts = torch.randint(0, cfg2.vocab_size, (2, prompt_len), device=dev,
+                                    generator=make_generator(seed, dev), dtype=torch.int32)
+            t0 = time.perf_counter()
+            r = precision.card_vs_host(api, params, host, prompts)
+            secs = time.perf_counter() - t0
+            got, errs = r["tokens"], [r["prefill_row_err"], r["decode_row_err"]]
+            same = torch.equal(got, r["host_tokens"])
+            log(f"{label}, full width, prompt seed {seed}: the card's greedy tokens "
+                f"{'equal' if same else 'DIFFER FROM'} the host's "
+                f"({got[:, prompt_len:].tolist()}); logits per-row ||d||/||ref||: prefill "
+                f"{errs[0]:.3e}, one decode step {errs[1]:.3e} (limit {limit:.0e}); {secs:.1f} s")
+            if not same:
+                fail(f"{label}: card tokens {got.tolist()} != host tokens "
+                     f"{r['host_tokens'].tolist()}")
+            if not max(errs) <= limit:
+                fail(f"{label}: card and host logits differ by {max(errs):.3e}")
+            out[f"seed{seed}"] = {"tokens": got.tolist(), "prefill_row_err": errs[0],
+                                  "decode_row_err": errs[1], "seconds": secs}
+        out["limit"] = limit
+        return out
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
 
     serving = {}
     # internlm2-1.8b: teacher-forced decode against the full forward
-    api, params, prompts, serving["internlm2-1.8b"] = serve_cell("internlm2-1.8b")
-    tf0 = LM_PROMPT - TF_STEPS
-    with torch.no_grad():
-        full = api.forward(params, {"tokens": prompts})[:, tf0:]
-        _, pf = api.prefill(params, {"tokens": prompts[:, :tf0]})
-        cache = api.init_cache(LM_BATCH, LM_PROMPT, device=dev)
-        cache.k[:, :, :tf0], cache.v[:, :, :tf0] = pf.k, pf.v
-        del pf
-        forced = []
-        for pos in range(tf0, LM_PROMPT):
-            lg, cache = api.decode(params, prompts[:, pos:pos + 1], cache, pos)
-            forced.append(lg)
-        forced = torch.cat(forced, dim=1)
-    tf_err = rows_err(forced, full)
-    same_argmax = float((forced.argmax(-1) == full.argmax(-1)).float().mean())
-    log(f"  teacher-forced decode of positions {tf0}-{LM_PROMPT - 1} after a {tf0}-token "
-        f"prefill against the full forward: largest per-row ||d||/||ref|| {tf_err:.3e} "
-        f"(limit {TF_ROW:.0e}); argmax equal at {same_argmax:.4f} of the positions")
-    if not tf_err <= TF_ROW:
-        fail(f"internlm2-1.8b: teacher-forced decode differs from the forward by {tf_err:.3e}")
-    serving["internlm2-1.8b"].update(teacher_forced_row_err=tf_err,
-                                     teacher_forced_argmax_equal=same_argmax)
+    api, params, prompts, serving["internlm2-1.8b"] = serve_cell("internlm2-1.8b", "8", t8)
+    serving["internlm2-1.8b"].update(teacher_forced(
+        f"internlm2-1.8b, positions {LM_PROMPT - TF_STEPS}-{LM_PROMPT - 1}",
+        *decode_vs_forward(api, params, prompts, LM_PROMPT - TF_STEPS, TF_STEPS)))
     log(f"  {time.perf_counter() - t8:.1f} s into phase 8")
-    del api, params, prompts, full, forced, cache, lg
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    api, params, prompts, serving["olmoe-1b-7b"] = serve_cell("olmoe-1b-7b")
     del api, params, prompts
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
+
+    api, params, prompts, serving["olmoe-1b-7b"] = serve_cell("olmoe-1b-7b", "8", t8)
+    del api, params, prompts
+    release()
 
     # a 2-layer olmoe-1b-7b at full width in f32 (TF32 off): the card against the host
-    cfg2 = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=2, dtype="float32")
-    api = build_model(cfg2)
-    t0 = time.perf_counter()
-    params = api.init_params(make_generator(0, dev))
-    host = host_copy(api, params)
-    log(f"2-layer f32 olmoe-1b-7b: init and host copy {time.perf_counter() - t0:.1f} s")
-    prompts = torch.randint(0, cfg2.vocab_size, (2, 32), device=dev,
-                            generator=make_generator(2, dev), dtype=torch.int32)
-    sc = ServeConfig(max_new_tokens=8)
-    t0 = time.perf_counter()
-    got = generate(api, params, {"tokens": prompts}, sc).cpu()
-    want = generate(api, host, {"tokens": prompts.cpu()}, sc)
-    with torch.no_grad():
-        lg_c, pf_c = api.prefill(params, {"tokens": prompts})
-        lg_h, pf_h = api.prefill(host, {"tokens": prompts.cpu()})
-        nxt = lg_h[:, -1:].argmax(-1)
-
-        def one_step(p_, pf_, d_):
-            c_ = api.init_cache(2, 33, device=d_)
-            c_.k[:, :, :32], c_.v[:, :, :32] = pf_.k, pf_.v
-            return api.decode(p_, nxt.to(d_), c_, 32)[0].cpu()
-
-        errs_f32 = [rows_err(lg_c.cpu(), lg_h),
-                    rows_err(one_step(params, pf_c, dev), one_step(host, pf_h, "cpu"))]
-    f32_s = time.perf_counter() - t0
-    log(f"2-layer olmoe-1b-7b, f32, full width: the card's greedy tokens "
-        f"{'equal' if torch.equal(got, want) else 'DIFFER FROM'} the host's "
-        f"({got[:, 32:].tolist()}); logits per-row ||d||/||ref||: prefill {errs_f32[0]:.3e}, "
-        f"one decode step {errs_f32[1]:.3e} (limit {F32_ROW:.0e}); {f32_s:.1f} s")
-    if not torch.equal(got, want):
-        fail(f"2-layer f32 olmoe: card tokens {got.tolist()} != host tokens {want.tolist()}")
-    if not max(errs_f32) <= F32_ROW:
-        fail(f"2-layer f32 olmoe: card and host logits differ by {max(errs_f32):.3e}")
-    serving["olmoe-2layer-f32"] = {"tokens": got.tolist(), "prefill_row_err": errs_f32[0],
-                                   "decode_row_err": errs_f32[1], "seconds": f32_s}
-    del api, params, host, lg_c, pf_c, lg_h, pf_h
-    gc.collect()
-    torch.cuda.empty_cache()
+    serving["olmoe-2layer-f32"] = card_vs_host(
+        "2-layer f32 olmoe-1b-7b",
+        dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=2, dtype="float32"), 32)
+    release()
 
     launched = {k_: w.launches for k_, w in wrappers.items() if w.launches}
     if launched:
@@ -2358,6 +2379,59 @@ def main() -> None:
     log(f"LM serving launched no kernel of the port (none lies on its path, in the JAX package "
         f"either); phase 8 took {serving['phase_s']:.1f} s")
     record["lm_serving"] = serving
+
+    # ------------------------------------------------------------------ 9
+    # SSM and hybrid serving at full width: zamba2-2.7b and xlstm-1.3b in bf16
+    t9 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    ssm_serving = {}
+    for arch in ("zamba2-2.7b", "xlstm-1.3b"):
+        api, params, prompts, rec = serve_cell(arch, "9", t9)
+        t0 = api.cfg.chunk  # prefill one chunk, then decode the next positions
+        forced16, full16 = decode_vs_forward(api, params, prompts, t0, TF_STEPS)
+        # the gate runs in f32: these random-weight models are below bf16's
+        # noise floor at full depth (the bf16 forward's own distance from
+        # the f32 forward, recorded beside it)
+        api32, p32 = as_f32(api, params, dev)
+        del params
+        release()
+        forced32, full32 = decode_vs_forward(api32, p32, prompts, t0, TF_STEPS)
+        rec.update(teacher_forced(f"{arch} in f32, positions {t0}-{t0 + TF_STEPS - 1}",
+                                  forced32, full32))
+        floor = rows_err(full16, full32)
+        rec["bf16"] = {"decode_vs_forward_row_err": rows_err(forced16, full16),
+                       "forward_vs_f32_forward_row_err": floor,
+                       "decode_vs_f32_forward_row_err": rows_err(forced16, full32),
+                       "limit": BF16_FLOOR * floor}
+        log(f"  {arch} in bf16, per-row ||d||/||ref||: teacher-forced decode against the bf16 "
+            f"forward {rec['bf16']['decode_vs_forward_row_err']:.3e}, against the f32 forward "
+            f"{rec['bf16']['decode_vs_f32_forward_row_err']:.3e} (limit {BF16_FLOOR} x the bf16 "
+            f"forward's own distance from the f32 forward, {floor:.3e})")
+        worst = max(rec["bf16"]["decode_vs_forward_row_err"],
+                    rec["bf16"]["decode_vs_f32_forward_row_err"])
+        if not worst <= BF16_FLOOR * floor:
+            fail(f"{arch}: bf16 teacher-forced decode lies {worst:.3e} per row from the forward, "
+                 f"beyond {BF16_FLOOR} x the bf16 forward's distance from f32 ({floor:.3e})")
+        ssm_serving[arch] = rec
+        log(f"  {time.perf_counter() - t9:.1f} s into phase 9")
+        del api, api32, p32, prompts, forced16, full16, forced32, full32
+        release()
+    # one group of each at full width in f32 (TF32 off): the card against the host
+    for arch, layers in (("zamba2-2.7b", 6), ("xlstm-1.3b", 8)):
+        cfg2 = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+        ssm_serving[f"{arch}-{layers}layer-f32"] = card_vs_host(
+            f"{layers}-layer f32 {arch}", cfg2, cfg2.chunk, CARD_HOST_SEEDS,
+            F32_ROW_XLSTM if arch == "xlstm-1.3b" else F32_ROW)
+        release()
+    launched = {k_: w.launches for k_, w in wrappers.items() if w.launches}
+    if launched:
+        fail(f"SSM and hybrid serving launched kernels of the port, where no path calls one: "
+             f"{launched}")
+    ssm_serving["phase_s"] = time.perf_counter() - t9
+    log(f"SSM and hybrid serving launched no kernel of the port (none lies on its path, in the "
+        f"JAX package either); phase 9 took {ssm_serving['phase_s']:.1f} s")
+    record["ssm_serving"] = ssm_serving
 
     # ------------------------------------------------------------------ 6
     # the path whose run each kernel's launches are read from (None: the

@@ -1,9 +1,9 @@
 """Architecture configs: one module per ported architecture (+ shapes).
 
 Use ``get_config("<arch-id>")`` / ``list_configs()`` / ``SHAPES``. The
-four dense configs and the two MoE configs are registered; the SSM,
-hybrid, encoder-decoder and VLM configs wait with their families
-(ROADMAP).
+four dense configs, the two MoE configs, the SSM config (xlstm-1.3b)
+and the hybrid config (zamba2-2.7b) are registered; the
+encoder-decoder and VLM configs wait with their families (ROADMAP).
 """
 from .base import SHAPES, ArchConfig, ShapeConfig, get_config, list_configs, reduced
 
@@ -21,6 +21,8 @@ def _load_all():
         qwen2_5_14b,
         qwen3_8b,
         stablelm_1_6b,
+        xlstm_1_3b,
+        zamba2_2_7b,
     )
 
     _LOADED = True

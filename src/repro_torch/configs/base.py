@@ -3,8 +3,8 @@
 One ``ArchConfig`` dataclass covers the six model families, field for
 field with ``repro.configs.base``; each architecture file instantiates it
 with the published numbers and registers it under its public id
-(``--arch <id>`` in the launchers). The port registers the four dense
-configs and the two MoE configs; the other families wait for their
+(``--arch <id>`` in the launchers). The port registers the dense, MoE, SSM
+and hybrid configs; the encoder-decoder and VLM families wait for their
 slices (ROADMAP).
 """
 from __future__ import annotations

@@ -5,11 +5,14 @@ The tests build an operator, a preconditioner or a model with the JAX
 package, take its numpy arrays, and hand them to the port through these
 functions; nothing here imports JAX. ``device`` is required (``None``
 means CUDA). The JAX package stacks each LM layer weight under a leading
-``layers`` axis; the port keeps one module per layer, so the LM
-converters only unstack (and ``lm_arrays_from_params`` stacks back).
+axis per stacked group (``layers``; ``mamba``; ``mlstm`` and ``slstm``);
+the port keeps one module per layer, so the LM converters only unstack
+(and ``lm_arrays_from_params`` stacks back). The recurrent states of the
+SSM and hybrid families come across whole.
 """
 from __future__ import annotations
 
+import typing
 from collections.abc import Mapping
 
 import numpy as np
@@ -30,6 +33,7 @@ __all__ = [
     "lm_arrays_from_params",
     "train_state_from_arrays",
     "kv_cache_from_arrays",
+    "state_from_arrays",
 ]
 
 
@@ -90,8 +94,17 @@ def _host_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _stacked_groups(cfg: ArchConfig) -> dict:
+    """{group: layer count} of the layout's stacked groups: the port's
+    per-layer lists (``shared_attn``, one set of weights, is no group)."""
+    from .models.zoo import build_model
+
+    return {k: len(v) for k, v in build_model(cfg).layout.items() if isinstance(v, list)}
+
+
 def _by_port_name(cfg: ArchConfig, tree: Mapping) -> dict:
-    """{port parameter name: array} of a JAX-layout LM tree (layers unstacked)."""
+    """{port parameter name: array} of a JAX-layout LM tree (every stacked
+    group unstacked)."""
     out = {}
 
     def walk(node: Mapping, prefix: str, layer: int | None):
@@ -102,10 +115,12 @@ def _by_port_name(cfg: ArchConfig, tree: Mapping) -> dict:
                 out[f"{prefix}{k}"] = v if layer is None else np.asarray(v)[layer]
 
     top = dict(tree)
-    layers = top.pop("layers")
+    groups = _stacked_groups(cfg)
+    stacks = {g: top.pop(g) for g in groups}
     walk(top, "", None)
-    for i in range(cfg.n_layers):
-        walk(layers, f"layers.{i}.", i)
+    for g, n in groups.items():
+        for i in range(n):
+            walk(stacks[g], f"{g}.{i}.", i)
     return out
 
 
@@ -123,7 +138,7 @@ def _fill(named: dict, arrays: dict, device: torch.device, what: str) -> None:
 
 def lm_params_from_arrays(cfg: ArchConfig, tree: Mapping, *, device):
     """The port's parameters (a ``ParamTree``, in ``cfg.dtype``) from a
-    JAX-layout LM parameter tree of numpy arrays (dense or MoE)."""
+    JAX-layout LM parameter tree of numpy arrays (any ported family)."""
     from .models.zoo import build_model
 
     params = build_model(cfg).empty_params(device)
@@ -140,21 +155,24 @@ def _set(tree: dict, dotted: str, value) -> None:
 
 
 def lm_arrays_from_params(cfg: ArchConfig, params) -> dict:
-    """The inverse: a JAX-layout tree of numpy arrays (layers stacked; bf16
-    as float32, which holds every bf16 value exactly)."""
+    """The inverse: a JAX-layout tree of numpy arrays (stacked groups
+    stacked; bf16 as float32, which holds every bf16 value exactly)."""
+    groups = _stacked_groups(cfg)
     tree: dict = {}
-    per_layer: dict = {}
+    per_layer: dict = {g: {} for g in groups}
     for name, t in params.named_parameters():
         t = t.detach().cpu()
         a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-        if name.startswith("layers."):
-            _, i, rest = name.split(".", 2)
-            per_layer.setdefault(rest, [None] * cfg.n_layers)[int(i)] = a
+        head, _, rest = name.partition(".")
+        if head in groups:
+            i, rest = rest.split(".", 1)
+            per_layer[head].setdefault(rest, [None] * groups[head])[int(i)] = a
         else:
             _set(tree, name, a)
-    tree["layers"] = {}
-    for rest, arrays in per_layer.items():
-        _set(tree["layers"], rest, np.stack(arrays))
+    for g, leaves in per_layer.items():
+        tree[g] = {}
+        for rest, arrays in leaves.items():
+            _set(tree[g], rest, np.stack(arrays))
     return tree
 
 
@@ -197,3 +215,19 @@ def kv_cache_from_arrays(k: np.ndarray, v: np.ndarray, *, device):
             f"k {tuple(k.shape)} and v {tuple(v.shape)} must both be (L, B, S, KV, hd)")
     dev = resolve_device(device)
     return KVCache(k=k.to(dev), v=v.to(dev))
+
+
+def state_from_arrays(kind, state, *, device):
+    """The port's recurrent state of NamedTuple type ``kind`` (``ZambaState``,
+    ``XLSTMState``) from the JAX package's NamedTuple of numpy arrays with
+    the same fields, each leaf on ``device`` (bf16 carried bit for bit); a
+    field whose annotation is itself a NamedTuple (``GLAState``,
+    ``KVCache``) is converted to that type."""
+    if tuple(state._fields) != kind._fields:
+        raise ValueError(f"{kind.__name__} has fields {kind._fields}, the given state "
+                         f"{tuple(state._fields)}")
+    dev = resolve_device(device)
+    hints = typing.get_type_hints(kind)
+    return kind(**{f: state_from_arrays(hints[f], getattr(state, f), device=dev)
+                   if hasattr(hints[f], "_fields") else _host_tensor(getattr(state, f)).to(dev)
+                   for f in kind._fields})

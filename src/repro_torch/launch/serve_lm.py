@@ -1,13 +1,15 @@
 """LM serving launcher: ``python -m repro_torch.launch.serve_lm --arch <id> ...``
 
-The port's counterpart of ``examples/serve_lm.py``: random parameters from
-a seeded generator (no weights are downloaded), a batch of seeded random
-prompts, one ``generate`` call (prefill, then the decode loop). Without
-``--full`` it serves the reduced config (same family and topology, tiny
-widths); ``--full`` the full config on one card. ``--device`` defaults to
-``cuda``; ``cpu`` runs the plain PyTorch path. On the card it also prints
-the least time a decode step could take: the bytes it must read
-(``decode_step_bytes``) at ``launch/roofline.py``'s HBM rate.
+The port's counterpart of ``examples/serve_lm.py``, for every ported
+family (dense, MoE, SSM, hybrid): random parameters from a seeded
+generator (no weights are downloaded), a batch of seeded random prompts,
+one ``generate`` call (prefill, then the decode loop). Without ``--full``
+it serves the reduced config (same family and topology, tiny widths);
+``--full`` the full config on one card. The SSM and hybrid families take
+prompts of a multiple of their chunk (16 reduced, 256 full). ``--device``
+defaults to ``cuda``; ``cpu`` runs the plain PyTorch path. On the card it
+also prints the least time a decode step could take: the bytes it must
+move (``decode_step_bytes``) at ``launch/roofline.py``'s HBM rate.
 """
 from __future__ import annotations
 
@@ -26,17 +28,39 @@ from .roofline import HW
 
 
 def decode_step_bytes(cfg: ArchConfig, batch: int, max_seq: int) -> int:
-    """The HBM bytes one decode step of the dense or MoE family must move as
-    the code runs it: every weight read once (the embedding table only at
-    the batch's rows, unless the head is tied to it; every expert of an MoE
-    layer, since the batched expert products read them all), the whole
-    max_seq cache of every layer read once, the new k/v and the logits
-    written once."""
+    """The HBM bytes one decode step must move as the code runs it: every
+    weight read once (the embedding table only at the batch's rows, unless
+    the head is tied to it; every expert of an MoE layer, since the batched
+    expert products read them all; the hybrid family's shared block once,
+    though a step applies it after every group) and the logits written
+    once. Dense and MoE: the whole max_seq cache of every layer read once,
+    the new k/v written. SSM and hybrid: every f32 recurrent state (mLSTM
+    S and n, sLSTM c, n and h; Mamba S and n) and the conv tails read once
+    and written once; hybrid: the shared block's whole max_seq cache of
+    every group read once, the new k/v written."""
     item = DTYPES[cfg.dtype].itemsize
     head = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
     weights = build_model(cfg).n_params() - head + batch * cfg.d_model
-    kv_per_pos = 2 * cfg.n_layers * batch * cfg.n_kv_heads * cfg.head_dim_
-    return item * (weights + kv_per_pos * (max_seq + 1) + batch * cfg.vocab_size)
+    total = item * (weights + batch * cfg.vocab_size)
+    nh = cfg.ssm_heads_
+    if cfg.family in ("dense", "moe"):
+        caches = cfg.n_layers
+    elif cfg.family == "hybrid":
+        caches = cfg.n_layers // cfg.attn_every
+        stt, dh = cfg.ssm_state, cfg.d_inner // nh
+        state = 4 * cfg.n_layers * batch * nh * (stt * dh + stt)
+        tails = item * cfg.n_layers * batch * 3 * (cfg.d_inner + 2 * stt)  # kernel 4: 3 inputs
+        total += 2 * (state + tails)
+    elif cfg.family == "ssm":
+        caches = 0
+        n_s = cfg.n_layers // cfg.slstm_every
+        dk = cfg.d_inner // nh
+        state = 4 * batch * ((cfg.n_layers - n_s) * nh * (dk * dk + dk) + n_s * 3 * cfg.d_model)
+        total += 2 * state
+    else:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (see ROADMAP)")
+    kv_per_pos = 2 * caches * batch * cfg.n_kv_heads * cfg.head_dim_
+    return total + item * kv_per_pos * (max_seq + 1)
 
 
 def main(argv=None):

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense and MoE decoder-only LM families."""
+"""Model zoo of the port: the dense, MoE, SSM (xLSTM) and hybrid (Zamba2)
+LM families."""
 from .zoo import ModelApi, build_model, make_generator
 
 __all__ = ["ModelApi", "build_model", "make_generator"]

@@ -1,5 +1,5 @@
-"""Model API, as the JAX package's ``models/zoo.py``, for the dense and
-MoE families.
+"""Model API, as the JAX package's ``models/zoo.py``, for the dense, MoE,
+SSM (xLSTM) and hybrid (Zamba2) families.
 
     api = build_model(cfg)
     params = api.init_params(generator)     # a ParamTree on generator.device
@@ -9,8 +9,11 @@ MoE families.
     logits, cache = api.decode(params, token, cache, pos)
 
 The MoE family's ``forward`` returns (logits, aux), as JAX's does. The
-four other families (ssm, hybrid, encdec, vlm) wait for their slices
-(ROADMAP) and raise ``NotImplementedError``.
+cache is a ``KVCache`` (dense, MoE), an ``XLSTMState`` (ssm: a recurrent
+state, O(1) in the context) or a ``ZambaState`` (hybrid: recurrent
+states and the shared attention block's KV caches); ``decode`` updates
+it in place. The encdec and vlm families wait for their slices (ROADMAP)
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,8 +24,10 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.common import resolve_device
+from . import mamba as _mamba
 from . import moe_lm as _moe
 from . import transformer as _dense
+from . import xlstm as _xlstm
 from .attention import KVCache, init_kv_cache
 from .common import DTYPES, ParamTree, count_params
 
@@ -56,44 +61,64 @@ class ModelApi:
 
     def forward(self, params: ParamTree, batch: dict, remat: bool = False):
         """Logits (B, T, V); the MoE family returns (logits, aux)."""
-        if self.cfg.family == "moe":
-            return _moe.moe_lm_forward(params, batch["tokens"], self.cfg, remat=remat)
-        return _dense.dense_lm_forward(params, batch["tokens"], self.cfg, remat=remat)
+        fam, tokens = self.cfg.family, batch["tokens"]
+        if fam == "moe":
+            return _moe.moe_lm_forward(params, tokens, self.cfg, remat=remat)
+        if fam == "ssm":
+            return _xlstm.xlstm_forward(params, tokens, self.cfg, remat=remat)
+        if fam == "hybrid":
+            return _mamba.zamba_forward(params, tokens, self.cfg, remat=remat)
+        return _dense.dense_lm_forward(params, tokens, self.cfg, remat=remat)
 
-    def prefill(self, params: ParamTree, batch: dict) -> tuple[torch.Tensor, KVCache]:
-        """The full forward over the prompt: (logits (B, T, V), its cache of
-        (L, B, T, KV, hd) tensors)."""
-        if self.cfg.family == "moe":
-            logits, _aux, kvs = _moe.moe_lm_forward(params, batch["tokens"], self.cfg,
-                                                    return_cache=True)
+    def prefill(self, params: ParamTree, batch: dict):
+        """The full forward over the prompt: (logits (B, T, V), its cache: k/v
+        of (L, B, T, KV, hd), or the recurrent state after the T tokens)."""
+        fam, tokens = self.cfg.family, batch["tokens"]
+        if fam == "ssm":
+            return _xlstm.xlstm_forward(params, tokens, self.cfg, return_state=True)
+        if fam == "hybrid":
+            return _mamba.zamba_forward(params, tokens, self.cfg, return_state=True)
+        if fam == "moe":
+            logits, _aux, kvs = _moe.moe_lm_forward(params, tokens, self.cfg, return_cache=True)
         else:
-            logits, kvs = _dense.dense_lm_forward(params, batch["tokens"], self.cfg,
-                                                  return_cache=True)
+            logits, kvs = _dense.dense_lm_forward(params, tokens, self.cfg, return_cache=True)
         return logits, KVCache(*kvs)
 
-    def init_cache(self, batch_size: int, max_seq: int, device=None) -> KVCache:
-        """A zero cache of max_seq positions on ``device`` (``None``: CUDA)."""
+    def init_cache(self, batch_size: int, max_seq: int, device=None):
+        """A zero cache of max_seq positions on ``device`` (``None``: CUDA);
+        the SSM family's state has no positions and ignores max_seq."""
+        fam = self.cfg.family
+        if fam == "ssm":
+            return _xlstm.xlstm_init_state(self.cfg, batch_size, device)
+        if fam == "hybrid":
+            return _mamba.zamba_init_state(self.cfg, batch_size, max_seq, self.dtype, device)
         return init_kv_cache(self.cfg, batch_size, max_seq, self.cfg.n_layers, self.dtype,
                              device)
 
-    def decode(self, params: ParamTree, token: torch.Tensor, cache: KVCache,
-               pos: int) -> tuple[torch.Tensor, KVCache]:
+    def decode(self, params: ParamTree, token: torch.Tensor, cache, pos: int):
         """One token (B, 1) at position ``pos``: (logits (B, 1, V), the cache
-        with this token's k/v written at ``pos``, in place)."""
-        if self.cfg.family == "moe":
+        updated in place: this token's k/v written at ``pos``, the recurrent
+        states stepped)."""
+        fam = self.cfg.family
+        if fam == "moe":
             return _moe.moe_lm_decode(params, token, cache, pos, self.cfg)
+        if fam == "ssm":
+            return _xlstm.xlstm_decode(params, token, cache, pos, self.cfg)
+        if fam == "hybrid":
+            return _mamba.zamba_decode(params, token, cache, pos, self.cfg)
         return _dense.dense_lm_decode(params, token, cache, pos, self.cfg)
 
     def n_params(self) -> int:
         return count_params(self.layout)
 
 
+_LAYOUTS = {"dense": _dense.dense_lm_layout, "moe": _moe.moe_lm_layout,
+            "ssm": _xlstm.xlstm_layout, "hybrid": _mamba.zamba_layout}
+
+
 def build_model(cfg: ArchConfig) -> ModelApi:
-    if cfg.family == "dense":
-        layout = _dense.dense_lm_layout(cfg)
-    elif cfg.family == "moe":
-        layout = _moe.moe_lm_layout(cfg)
-    else:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: only dense and moe are (see ROADMAP)")
+    if cfg.family not in _LAYOUTS:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: only "
+                                  f"{', '.join(_LAYOUTS)} are (see ROADMAP)")
+    layout = _LAYOUTS[cfg.family](cfg)
     return ModelApi(cfg=cfg, layout=layout)

@@ -2,7 +2,8 @@
 the plan cache.
 
 * ``engine``    — ``generate`` (prefill, then a greedy or sampled decode
-  loop over the model's KV cache) and ``make_decode_step``;
+  loop over the model's KV cache or recurrent state), ``prefill_cache``
+  and ``make_decode_step``;
   ``SolverEngine``: synchronous bucket coalescing over one pinned plan.
 * ``queue``     — bounded admission queue + bucket-closing batch policy
   (full OR timeout), explicit backpressure (``QueueFull``), deadlines.
@@ -19,6 +20,7 @@ from .engine import (
     bucket_waste,
     generate,
     make_decode_step,
+    prefill_cache,
     record_bucket,
 )
 from .queue import DeadlineExceeded, QueueFull, RequestQueue, ServerClosed, SolveRequest
@@ -51,6 +53,7 @@ __all__ = [
     "make_decode_step",
     "operator_spec",
     "pool_key",
+    "prefill_cache",
     "record_bucket",
     "register_operator_builder",
     "save_manifest",

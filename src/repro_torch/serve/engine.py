@@ -2,7 +2,8 @@
 
 LM serving: ``generate`` prefills a batch of prompts once, then decodes
 token by token (greedy, or sampled with a temperature) through the
-model's cache. JAX runs the decode loop as one ``lax.while_loop``; here
+model's cache: a KV cache, a recurrent state (ssm), or both (hybrid).
+JAX runs the decode loop as one ``lax.while_loop``; here
 it is a Python loop over ``api.decode`` that reads the device only to
 stop early once every row has emitted ``eos_id``.
 
@@ -23,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..models.attention import KVCache
 from ..models.zoo import ModelApi
 from ..obs import metrics as _metrics
 from ..obs.trace import enabled as _obs_enabled, span as _span
@@ -33,6 +35,7 @@ __all__ = [
     "bucket_waste",
     "generate",
     "make_decode_step",
+    "prefill_cache",
     "record_bucket",
 ]
 
@@ -87,11 +90,9 @@ def generate(api: ModelApi, params, batch: dict, sc: ServeConfig = ServeConfig()
         generator = torch.Generator(device=dev)
         generator.manual_seed(0)
 
-    logits, pf_cache = api.prefill(params, batch)
-    cache = _copy_prefill(api, api.init_cache(B, T + sc.max_new_tokens, device=dev), pf_cache,
-                          T, batch)
+    logits, cache = prefill_cache(api, params, batch, T + sc.max_new_tokens)
     last = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-    del logits, pf_cache
+    del logits
 
     out = torch.zeros((B, sc.max_new_tokens), dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -109,14 +110,28 @@ def generate(api: ModelApi, params, batch: dict, sc: ServeConfig = ServeConfig()
     return torch.cat([tokens.to(torch.int32), last[:, None], out[:, :-1]], dim=1)
 
 
-def _copy_prefill(api: ModelApi, cache, pf_cache, T: int, batch: dict):
-    """Splice the prefill's k/v into the first T positions of a max_seq
-    cache (in place)."""
-    if api.cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {api.cfg.family!r} is not ported yet (see ROADMAP)")
-    cache.k[:, :, :T] = pf_cache.k
-    cache.v[:, :, :T] = pf_cache.v
-    return cache
+@torch.no_grad()
+def prefill_cache(api: ModelApi, params, batch: dict, max_seq: int):
+    """``api.prefill`` over batch["tokens"] (B, T), its k/v spliced into the
+    first T positions of a zero cache of ``max_seq`` on the logits' device:
+    (logits (B, T, V), the cache ``api.decode`` steps from position T). The
+    SSM family's state has no positions: the prefill's is the cache. The
+    hybrid family's recurrent states are the prefill's, and only its
+    shared block's KV caches are allocated at ``max_seq``. No zero state is
+    allocated only to be dropped."""
+    B, T = batch["tokens"].shape
+    logits, pf_cache = api.prefill(params, batch)
+    fam = api.cfg.family
+    if fam == "ssm":
+        return logits, pf_cache
+    if fam not in ("dense", "moe", "hybrid"):
+        raise NotImplementedError(f"family {fam!r} is not ported yet (see ROADMAP)")
+    pf_kv = pf_cache.attn_kv if fam == "hybrid" else pf_cache
+    L, _, _, KV, hd = pf_kv.k.shape
+    kv = KVCache(*(t.new_zeros((L, B, max_seq, KV, hd)) for t in pf_kv))
+    kv.k[:, :, :T] = pf_kv.k
+    kv.v[:, :, :T] = pf_kv.v
+    return logits, pf_cache._replace(attn_kv=kv) if fam == "hybrid" else kv
 
 
 def record_bucket(valid: int, size: int) -> None:
