@@ -176,6 +176,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
    CPU's, logits within 1e-4 per row (xlstm: 1e-3, F32_ROW_XLSTM). No
    kernel of the port lies on this path either: the phase fails if one
    launches.
+10. training at full width, after 9, through ``make_train_step`` and the
+   fused optimizer (lr 6e-4, constant): xlstm-1.3b and zamba2-2.7b in bf16
+   with ``remat=True``, 4 steps from batch 8 x 512, the batch halved until
+   a step fits (the batch is printed); whisper-tiny in bf16, 20 steps at
+   batch 8 x 448 decoder tokens x 1,500 stub frames. Each: ms a step (the
+   median of steps 1 on), tokens/s, peak memory, fused_adam launches a
+   step (one per tensor); the step-0 loss within 0.25 of ln V + 0.5 (the
+   loss of unit-variance random logits), every grad norm finite, batch
+   0's loss lower after the steps (whisper: also the last five step
+   losses below the first five). llama-3.2-vision-11b trains at its
+   reduced config only, in f32 (gates 0.5, ``remat="save_collectives"``):
+   3 steps on the card and the host, losses and grad norms within 1e-5
+   relative; at full width AdamW needs ~12 bytes a parameter, 117 GB.
+   The three remat modes on internlm2-1.8b at full width and 4 layers:
+   equal loss, grad norms within 1e-6, peak memory ordered False >=
+   ``save_collectives`` >= True.
+11. encdec and VLM serving at full width, after 10, through ``generate``:
+   whisper-tiny (batch 8, 1,500 stub frames, 64-token prompts) and
+   llama-3.2-vision-11b (batch 8, 512-token prompts, 1,601 stub image
+   tokens, every cross gate 0.5) in bf16 from seeded random weights, 64
+   greedy tokens; phase 8's figures, beside ``decode_step_bytes``'s bound
+   and the VLM's cross K/V FLOP bound (``decode_step_cross_flops``);
+   teacher-forced decode of the prompt's last 16 positions within 5e-2
+   per row of the full forward (where the bf16 forward itself lies
+   farther from its f32 forward, the gate runs in f32 and bf16 is held to
+   BF16_FLOOR x that distance, as in 9); whisper-tiny at full width and
+   one VLM group (4 self + 1 cross, gates 0.5) in f32 on (2, 32) prompts:
+   the card's greedy tokens equal the host's, logits within 1e-4 per row.
+   No kernel of the port lies on these paths: the phase fails if one
+   launches.
 
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -251,6 +281,23 @@ CARD_HOST_SEEDS = (2, 3, 4)
 # nor from the bf16 forward, than BF16_FLOOR x that distance (readings:
 # 1.01x and 0.71x for zamba2, 1.00x and 0.34x for xlstm)
 BF16_FLOOR = 1.5
+# phase 10, training at full width through the fused optimizer at a
+# constant lr (warmup_cosine's is 0 at step 0): xlstm-1.3b and zamba2-2.7b
+# with remat, 4 steps from batch 8 x 512, halved until a step fits;
+# whisper-tiny 20 steps at batch 8 x 448 decoder tokens (Whisper's limit)
+FAM_STEPS, FAM_BATCH, FAM_SEQ, FAM_LR = 4, 8, 512, 6e-4
+WHISPER_STEPS, WHISPER_SEQ = 20, 448
+# the step-0 loss: a unit-RMS final norm and a head of std 1/sqrt(d) give
+# logits of variance ~1, so the expected loss is ln V + 1/2, not ln V
+# (one group of each at full width on the host, seeded init: +0.59 xlstm,
+# +0.51 zamba2 and whisper, +0.44 internlm2)
+STEP0_EXCESS, STEP0_TOL = 0.5, 0.25
+# the reduced f32 VLM, card against host: losses and grad norms (relative)
+VLM_REL = 1e-5
+# phase 11: whisper-tiny takes 64-token prompts (a transcription batch);
+# the VLM phase 8's 512. Every cross gate 0.5: at its zero init a cross
+# layer adds nothing, and a wrong cross-attention would pass
+WHISPER_PROMPT, VLM_GATE = 64, 0.5
 BASELINE_BAND = 2                  # pcg/chronopoulos vs pipecg iterations (tests/test_solvers.py)
 REPLACES = {
     "spmv_dia": "src/repro/kernels/spmv_dia/kernel.py:37",
@@ -1655,6 +1702,8 @@ def main() -> None:
     from repro_torch.train import (
         AdamWConfig,
         TrainConfig,
+        TrainState,
+        adamw_init,
         adamw_update,
         batch_to_device,
         init_train_state,
@@ -2184,7 +2233,7 @@ def main() -> None:
     from repro_torch.launch import precision
     from repro_torch.launch.precision import as_f32, decode_vs_forward, host_copy, rows_err
     from repro_torch.launch.roofline import HW
-    from repro_torch.launch.serve_lm import decode_step_bytes
+    from repro_torch.launch.serve_lm import decode_step_bytes, decode_step_cross_flops, extras_for
     from repro_torch.serve import ServeConfig, generate, prefill_cache
 
     gc.collect()
@@ -2195,39 +2244,47 @@ def main() -> None:
         w.launches = 0
     sync()
 
-    def serve_cell(arch, phase, t_phase):
-        """Seeded random weights and prompts; generate twice (equal tokens);
-        prefill ms, ms per decode step (CUDA events, greedy tokens fed back),
-        tokens/s, peak memory and the decode step's bytes bound."""
+    def serve_cell(arch, phase, t_phase, prompt_len=LM_PROMPT, gate=None):
+        """Seeded random weights, prompts and (encdec, vlm) stub frames or
+        image features; with ``gate``, every cross gate set to it; generate
+        twice (equal tokens); prefill ms, ms per decode step (CUDA events,
+        greedy tokens fed back), tokens/s, peak memory and the decode step's
+        bytes bound (and the cross K/V's FLOP bound). Returns (api, params,
+        the batch, the record)."""
         cfg = get_config(arch)
         api = build_model(cfg)
         held = torch.cuda.memory_allocated()  # what earlier phases still hold
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = api.init_params(make_generator(0, dev))
-        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device=dev,
+        if gate is not None:
+            with torch.no_grad():
+                for lp in params["cross_layers"]:
+                    lp["cross"]["gate"].fill_(gate)
+        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, prompt_len), device=dev,
                                 generator=make_generator(1, dev), dtype=torch.int32)
+        batch = {"tokens": prompts,
+                 **extras_for(cfg, LM_BATCH, make_generator(2, dev), api.dtype, dev)}
         sc = ServeConfig(max_new_tokens=LM_NEW)
         sync()
         init_s = time.perf_counter() - t0
         walls, outs = [], []
         for _ in range(2):
             t0 = time.perf_counter()
-            outs.append(generate(api, params, {"tokens": prompts}, sc))
+            outs.append(generate(api, params, batch, sc))
             sync()
             walls.append(time.perf_counter() - t0)
         if not torch.equal(outs[0], outs[1]):
             fail(f"{arch}: two generate calls gave different tokens")
         out = outs[0]
-        if out.shape != (LM_BATCH, LM_PROMPT + LM_NEW) or not torch.equal(out[:, :LM_PROMPT],
-                                                                          prompts):
+        if out.shape != (LM_BATCH, prompt_len + LM_NEW) or not torch.equal(out[:, :prompt_len],
+                                                                           prompts):
             fail(f"{arch}: generate returned {tuple(out.shape)} or changed the prompt")
         if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
             fail(f"{arch}: a generated token lies outside the vocabulary")
-        batch = {"tokens": prompts}
         with torch.no_grad():
             prefill_ms = timed(lambda: api.prefill(params, batch), 1, 3)
-            logits, cache = prefill_cache(api, params, batch, LM_PROMPT + LM_NEW)
+            logits, cache = prefill_cache(api, params, batch, prompt_len + LM_NEW)
             tok = logits[:, -1].argmax(-1, keepdim=True)
             finite = bool(torch.isfinite(logits).all())
             del logits
@@ -2235,7 +2292,7 @@ def main() -> None:
             for i in range(LM_NEW):
                 ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-                lg, cache = api.decode(params, tok, cache, LM_PROMPT + i)
+                lg, cache = api.decode(params, tok, cache, prompt_len + i)
                 tok = lg[:, -1].argmax(-1, keepdim=True)
                 ev[1].record()
                 step_ms.append(ev)
@@ -2245,18 +2302,23 @@ def main() -> None:
         if not finite:
             fail(f"{arch}: prefill or decode logits are not finite")
         ms_step = statistics.median(step_ms)
-        bound_bytes = decode_step_bytes(cfg, LM_BATCH, LM_PROMPT + LM_NEW)
+        bound_bytes = decode_step_bytes(cfg, LM_BATCH, prompt_len + LM_NEW)
         bound_ms = bound_bytes / HW["hbm_bw"] * 1e3
+        flops = decode_step_cross_flops(cfg, LM_BATCH)
         peak = torch.cuda.max_memory_allocated() - held
         rec = {"arch": arch, "n_params": api.n_params(), "batch": LM_BATCH,
-               "prompt": LM_PROMPT, "new_tokens": LM_NEW, "generate_s": walls,
+               "prompt": prompt_len, "new_tokens": LM_NEW, "generate_s": walls,
                "prefill_ms": prefill_ms, "decode_step_ms": step_ms, "ms_per_decode_step": ms_step,
                "decode_tokens_per_s": LM_BATCH / (ms_step / 1e3),
                "decode_bound_bytes": bound_bytes, "decode_bound_ms": bound_ms,
-               "peak_memory_bytes": peak, "tokens_row0": out[0, LM_PROMPT:].tolist(),
+               "peak_memory_bytes": peak, "tokens_row0": out[0, prompt_len:].tolist(),
                "init_s": init_s, "held_by_earlier_phases_bytes": held}
+        if flops:
+            rec.update(cross_kv_flops=flops, cross_kv_flop_bound_ms=flops / bf16_peak * 1e3)
+            log(f"  {arch}: the cross K/V recomputed a decode step: {flops:,} FLOPs, "
+                f"{flops / bf16_peak * 1e3:.4f} ms at {bf16_peak / 1e12:.0f} TFLOP/s")
         log(f"{arch} ({api.n_params():,} parameters, bf16; init {init_s:.1f} s) served "
-            f"{LM_BATCH} x {LM_PROMPT} prompts, {LM_NEW} greedy tokens: generate {walls[0]:.3f} s, "
+            f"{LM_BATCH} x {prompt_len} prompts, {LM_NEW} greedy tokens: generate {walls[0]:.3f} s, "
             f"again {walls[1]:.3f} s (equal tokens; {LM_BATCH * LM_NEW / walls[1]:.1f} tokens/s "
             f"with the prefill); prefill {prefill_ms:.3f} ms; decode step {ms_step:.4f} ms (median "
             f"of {LM_NEW}; bound {bound_ms:.4f} ms: {bound_bytes:,} bytes at "
@@ -2266,7 +2328,7 @@ def main() -> None:
         # where a decode step's time goes: torch.profiler over PROF_STEPS more steps
         t0 = time.perf_counter()
         with torch.no_grad():
-            pos0 = LM_PROMPT + LM_NEW - PROF_STEPS  # positions decoded again
+            pos0 = prompt_len + LM_NEW - PROF_STEPS  # positions decoded again
             sync()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t1 = time.perf_counter()
@@ -2302,7 +2364,7 @@ def main() -> None:
             log(f"  profiled decode step: {rec['profile']}")
         del cache
         log(f"  {time.perf_counter() - t_phase:.1f} s into phase {phase}")
-        return api, params, prompts, rec
+        return api, params, batch, rec
 
     def teacher_forced(label, forced, full) -> dict:
         """Fails where a teacher-forced row is beyond TF_ROW of the forward's."""
@@ -2315,22 +2377,29 @@ def main() -> None:
             fail(f"{label}: teacher-forced decode differs from the forward by {err:.3e}")
         return {"teacher_forced_row_err": err, "teacher_forced_argmax_equal": same}
 
-    def card_vs_host(label, cfg2, prompt_len, seeds=(2,), limit=F32_ROW) -> dict:
+    def card_vs_host(label, cfg2, prompt_len, seeds=(2,), limit=F32_ROW, gate=None) -> dict:
         """A cut f32 model at full width (TF32 off) on a (2, prompt_len)
-        prompt of each seed: the card's 8 greedy tokens equal the host
-        CPU's, prefill and one decode step's logits within ``limit`` per
-        row (``launch.precision.card_vs_host``)."""
+        prompt of each seed (with seeded stub frames or image features
+        where the family takes them; every cross gate set to ``gate``): the
+        card's 8 greedy tokens equal the host CPU's, prefill and one decode
+        step's logits within ``limit`` per row
+        (``launch.precision.card_vs_host``)."""
         api = build_model(cfg2)
         t0 = time.perf_counter()
         params = api.init_params(make_generator(0, dev))
+        if gate is not None:
+            with torch.no_grad():
+                for lp in params["cross_layers"]:
+                    lp["cross"]["gate"].fill_(gate)
         host = host_copy(api, params)
         log(f"{label}: init and host copy {time.perf_counter() - t0:.1f} s")
         out = {}
         for seed in seeds:
             prompts = torch.randint(0, cfg2.vocab_size, (2, prompt_len), device=dev,
                                     generator=make_generator(seed, dev), dtype=torch.int32)
+            extras = extras_for(cfg2, 2, make_generator(seed + 100, dev), api.dtype, dev)
             t0 = time.perf_counter()
-            r = precision.card_vs_host(api, params, host, prompts)
+            r = precision.card_vs_host(api, params, host, prompts, extras)
             secs = time.perf_counter() - t0
             got, errs = r["tokens"], [r["prefill_row_err"], r["decode_row_err"]]
             same = torch.equal(got, r["host_tokens"])
@@ -2354,16 +2423,16 @@ def main() -> None:
 
     serving = {}
     # internlm2-1.8b: teacher-forced decode against the full forward
-    api, params, prompts, serving["internlm2-1.8b"] = serve_cell("internlm2-1.8b", "8", t8)
+    api, params, batch, serving["internlm2-1.8b"] = serve_cell("internlm2-1.8b", "8", t8)
     serving["internlm2-1.8b"].update(teacher_forced(
         f"internlm2-1.8b, positions {LM_PROMPT - TF_STEPS}-{LM_PROMPT - 1}",
-        *decode_vs_forward(api, params, prompts, LM_PROMPT - TF_STEPS, TF_STEPS)))
+        *decode_vs_forward(api, params, batch["tokens"], LM_PROMPT - TF_STEPS, TF_STEPS)))
     log(f"  {time.perf_counter() - t8:.1f} s into phase 8")
-    del api, params, prompts
+    del api, params, batch
     release()
 
-    api, params, prompts, serving["olmoe-1b-7b"] = serve_cell("olmoe-1b-7b", "8", t8)
-    del api, params, prompts
+    api, params, batch, serving["olmoe-1b-7b"] = serve_cell("olmoe-1b-7b", "8", t8)
+    del api, params, batch
     release()
 
     # a 2-layer olmoe-1b-7b at full width in f32 (TF32 off): the card against the host
@@ -2387,7 +2456,8 @@ def main() -> None:
         w.launches = 0
     ssm_serving = {}
     for arch in ("zamba2-2.7b", "xlstm-1.3b"):
-        api, params, prompts, rec = serve_cell(arch, "9", t9)
+        api, params, batch, rec = serve_cell(arch, "9", t9)
+        prompts = batch["tokens"]
         t0 = api.cfg.chunk  # prefill one chunk, then decode the next positions
         forced16, full16 = decode_vs_forward(api, params, prompts, t0, TF_STEPS)
         # the gate runs in f32: these random-weight models are below bf16's
@@ -2415,7 +2485,7 @@ def main() -> None:
                  f"beyond {BF16_FLOOR} x the bf16 forward's distance from f32 ({floor:.3e})")
         ssm_serving[arch] = rec
         log(f"  {time.perf_counter() - t9:.1f} s into phase 9")
-        del api, api32, p32, prompts, forced16, full16, forced32, full32
+        del api, api32, p32, batch, prompts, forced16, full16, forced32, full32
         release()
     # one group of each at full width in f32 (TF32 off): the card against the host
     for arch, layers in (("zamba2-2.7b", 6), ("xlstm-1.3b", 8)):
@@ -2432,6 +2502,265 @@ def main() -> None:
     log(f"SSM and hybrid serving launched no kernel of the port (none lies on its path, in the "
         f"JAX package either); phase 9 took {ssm_serving['phase_s']:.1f} s")
     record["ssm_serving"] = ssm_serving
+
+    # ------------------------------------------------------------------ 10
+    # training at full width: the SSM and hybrid families under remat,
+    # whisper-tiny, the VLM at its reduced config, the three remat modes
+    t10 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    fam_train = {}
+
+    def train_cell(arch, batch0, seq, steps, remat):
+        """Seeded init, then ``steps`` fused-optimizer steps of seeded
+        batches (extras in the model's dtype), the batch halved from
+        ``batch0`` until the first step fits; per-step ms (CUDA events; the
+        median of steps 1 on), tokens/s, peak memory above what earlier
+        phases hold, fused_adam launches a step. Fails unless the step-0
+        loss is within STEP0_TOL of ln V + STEP0_EXCESS, every grad norm is
+        finite and the loss
+        falls (batch 0's loss after the steps below its step-0 loss)."""
+        cfg = get_config(arch)
+        api = build_model(cfg)
+        step_fn = make_train_step(api, TrainConfig(
+            optimizer=AdamWConfig(lr=FAM_LR, clip_norm=1.0, apply_fused=True), remat=remat))
+        held = torch.cuda.memory_allocated()
+
+        def attempt(b):
+            state = init_train_state(api, make_generator(0, dev))
+            dc = SyntheticConfig(batch=b, seq_len=seq, vocab_size=cfg.vocab_size, seed=0)
+            losses, gnorms, events = [], [], []
+            for s_ in range(steps):
+                batch = batch_to_device(batch_for_step(dc, s_, cfg), dev, api.dtype)
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                state, metrics = step_fn(state, batch)
+                ev[1].record()
+                losses.append(metrics["loss"])
+                gnorms.append(metrics["grad_norm"])
+                events.append(ev)
+                if s_ == 0:
+                    sync()  # the first step fits, or raises here
+            sync()
+            return state, losses, gnorms, events
+
+        b = batch0
+        while True:
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            before = fused_adamw.launches
+            try:
+                state, losses, gnorms, events = attempt(b)
+                break
+            except torch.cuda.OutOfMemoryError:
+                if b == 1:
+                    fail(f"{arch}: a training step at batch 1 x {seq} does not fit")
+                log(f"  {arch}: batch {b} x {seq} does not fit; halving")
+            b //= 2
+        peak = torch.cuda.max_memory_allocated() - held
+        losses, gnorms = torch.stack(losses).tolist(), torch.stack(gnorms).tolist()
+        step_ms = [a.elapsed_time(e_) for a, e_ in events]
+        n_tensors = len(list(state.params.parameters()))
+        per_step = (fused_adamw.launches - before) / steps
+        ms = statistics.median(step_ms[1:])
+        rec = {"arch": arch, "n_params": api.n_params(), "remat": remat, "batch": b,
+               "seq": seq, "steps": steps, "lr": FAM_LR, "losses": losses,
+               "grad_norms": gnorms, "step_ms": step_ms, "ms_per_step": ms,
+               "tokens_per_s": b * seq / (ms / 1e3), "peak_memory_bytes": peak,
+               "held_by_earlier_phases_bytes": held, "fused_adam_launches_per_step": per_step,
+               "n_tensors": n_tensors}
+        log(f"{arch} ({api.n_params():,} parameters, {cfg.dtype}, remat={remat!r}) trained "
+            f"{steps} steps at batch {b} x {seq}: losses {losses}, grad norms {gnorms}; "
+            f"{ms:.2f} ms a step (median of steps 1-{steps - 1}; all "
+            f"{[round(x, 2) for x in step_ms]}), {b * seq / (ms / 1e3):.0f} tokens/s, peak "
+            f"{peak / 2**30:.2f} GiB above {held / 2**30:.2f} GiB held, {per_step:g} fused_adam "
+            f"launches a step ({n_tensors} tensors)")
+        if not all(math.isfinite(x) for x in losses + gnorms):
+            fail(f"{arch}: a loss or grad norm is not finite")
+        expect = math.log(cfg.vocab_size) + STEP0_EXCESS
+        if abs(losses[0] - expect) > STEP0_TOL:
+            fail(f"{arch}: step-0 loss {losses[0]:.4f} is not within {STEP0_TOL} of ln V + "
+                 f"{STEP0_EXCESS} = {expect:.4f}")
+        with torch.no_grad():  # batch 0 again, after the steps
+            b0 = batch_to_device(batch_for_step(SyntheticConfig(
+                batch=b, seq_len=seq, vocab_size=cfg.vocab_size, seed=0), 0, cfg), dev, api.dtype)
+            after = float(next_token_loss(api.forward(state.params, b0), b0["tokens"]))
+        rec["batch0_loss_after"] = after
+        log(f"  {arch}: the loss on batch 0 went from {losses[0]:.4f} to {after:.4f} over the "
+            f"{steps} steps")
+        if not after < losses[0]:
+            fail(f"{arch}: the loss did not fall: batch 0 {losses[0]:.4f} -> {after:.4f}")
+        if per_step != n_tensors:
+            fail(f"{arch}: {per_step} fused_adam launches a step for {n_tensors} tensors")
+        del state
+        release()
+        return rec
+
+    for arch in ("xlstm-1.3b", "zamba2-2.7b"):
+        fam_train[arch] = train_cell(arch, FAM_BATCH, FAM_SEQ, FAM_STEPS, True)
+        log(f"  {time.perf_counter() - t10:.1f} s into phase 10")
+    fam_train["whisper-tiny"] = train_cell("whisper-tiny", FAM_BATCH, WHISPER_SEQ,
+                                           WHISPER_STEPS, False)
+    rec = fam_train["whisper-tiny"]
+    if not statistics.mean(rec["losses"][-5:]) < statistics.mean(rec["losses"][:5]):
+        fail(f"whisper-tiny: the last five losses are not below the first five: {rec['losses']}")
+    log(f"  {time.perf_counter() - t10:.1f} s into phase 10")
+
+    # llama-3.2-vision-11b trains at its reduced config only: at full width
+    # AdamW needs about 12 bytes a parameter, 117 GB, beyond one 80 GB card
+    vcfg = reduced(get_config("llama-3.2-vision-11b"))
+    vapi = build_model(vcfg)
+    vparams = vapi.init_params(make_generator(0, dev))
+    with torch.no_grad():
+        for lp in vparams["cross_layers"]:
+            lp["cross"]["gate"].fill_(VLM_GATE)
+    vhost = host_copy(vapi, vparams)
+    vstep = make_train_step(vapi, TrainConfig(
+        optimizer=AdamWConfig(lr=1e-3, clip_norm=1.0, apply_fused=True), remat="save_collectives"))
+    on = {"card": TrainState(vparams, adamw_init(dict(vparams.named_parameters())),
+                             torch.zeros((), dtype=torch.int32, device=dev)),
+          "host": TrainState(vhost, adamw_init(dict(vhost.named_parameters())),
+                             torch.zeros((), dtype=torch.int32))}
+    vdc = SyntheticConfig(batch=4, seq_len=64, vocab_size=vcfg.vocab_size, seed=0)
+    vrows, before = [], fused_adamw.launches
+    for s_ in range(3):
+        hb = batch_for_step(vdc, s_, vcfg)
+        on["card"], mc = vstep(on["card"], batch_to_device(hb, dev, vapi.dtype))
+        on["host"], mh = vstep(on["host"], batch_to_device(hb, "cpu", vapi.dtype))
+        row = {k_: (float(mc[k_]), float(mh[k_])) for k_ in ("loss", "grad_norm")}
+        vrows.append(row)
+        for k_, (a, b_) in row.items():
+            if not abs(a - b_) <= VLM_REL * abs(b_):
+                fail(f"reduced llama-3.2-vision-11b step {s_}: card {k_} {a} vs host {b_}")
+    v_launches = fused_adamw.launches - before
+    n_v = len(list(vparams.parameters()))
+    if v_launches != 3 * n_v:
+        fail(f"reduced VLM: {v_launches} fused_adam launches for 3 steps x {n_v} tensors")
+    fam_train["llama-3.2-vision-11b-reduced-f32"] = {
+        "steps": vrows, "limit_rel": VLM_REL, "fused_adam_launches_per_step": v_launches / 3,
+        "n_tensors": n_v, "remat": "save_collectives", "batch": 4, "seq": 64,
+        "why_reduced": "AdamW at full width needs ~12 bytes a parameter, 117 GB"}
+    log(f"reduced llama-3.2-vision-11b (f32, gates {VLM_GATE}, remat='save_collectives'), 3 "
+        f"steps, card against host (loss, grad norm): {vrows}; {v_launches // 3} fused_adam "
+        f"launches a step. Full width is not trained: AdamW needs ~12 bytes a parameter, "
+        f"{12 * 9_775_157_256 / 1e9:.0f} GB, beyond one 80 GB card")
+    del vparams, vhost, on
+    release()
+
+    # the three remat modes on internlm2-1.8b at full width and 4 layers
+    rcfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=4)
+    rapi = build_model(rcfg)
+    rdc = SyntheticConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, vocab_size=rcfg.vocab_size, seed=0)
+    modes = {}
+    for remat in (False, "save_collectives", True):
+        release()
+        state = init_train_state(rapi, make_generator(0, dev))
+        step_fn = make_train_step(rapi, TrainConfig(
+            optimizer=AdamWConfig(lr=FAM_LR, clip_norm=1.0, apply_fused=True), remat=remat))
+        batch = batch_to_device(batch_for_step(rdc, 0), dev)
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, metrics = step_fn(state, batch)
+        sync()
+        modes[str(remat)] = {"loss": float(metrics["loss"]),
+                             "grad_norm": float(metrics["grad_norm"]),
+                             "peak_above_state_bytes": torch.cuda.max_memory_allocated() - base}
+        del state, metrics, batch
+    release()
+    m_f, m_s, m_t = modes["False"], modes["save_collectives"], modes["True"]
+    log(f"internlm2-1.8b, 4 layers at full width, one step at batch {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"per remat mode (loss, grad norm, peak GiB above the state): " + "; ".join(
+            f"{k_}: {v_['loss']!r}, {v_['grad_norm']!r}, {v_['peak_above_state_bytes'] / 2**30:.3f}"
+            for k_, v_ in modes.items()))
+    # the same forward; the backward's recompute runs the same kernels again
+    if not m_f["loss"] == m_s["loss"] == m_t["loss"]:
+        fail(f"remat modes give different losses: {[v_['loss'] for v_ in modes.values()]}")
+    if not max(abs(v_["grad_norm"] - m_f["grad_norm"]) for v_ in (m_s, m_t)) <= (
+            1e-6 * m_f["grad_norm"]):
+        fail(f"remat modes give different grad norms: "
+             f"{[v_['grad_norm'] for v_ in modes.values()]}")
+    peaks = [v_["peak_above_state_bytes"] for v_ in (m_f, m_s, m_t)]
+    if not peaks[0] >= peaks[1] >= peaks[2]:
+        fail(f"peak memory not ordered False >= save_collectives >= True: {peaks}")
+    fam_train["internlm2-1.8b-4layer-remat-modes"] = modes
+    launched = {k_: w.launches for k_, w in wrappers.items()
+                if w.launches and k_ != "fused_adam"}
+    if launched:
+        fail(f"training launched kernels of the port other than fused_adam: {launched}")
+    fam_train["phase_s"] = time.perf_counter() - t10
+    log(f"phase 10 took {fam_train['phase_s']:.1f} s")
+    record["family_training"] = fam_train
+
+    # ------------------------------------------------------------------ 11
+    # encoder-decoder and VLM serving at full width, in bf16
+    t11 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    vis_serving = {}
+
+    def forced_gate(arch, cell, t0):
+        """Teacher-forced decode of TF_STEPS positions after a t0-token
+        prefill against the full forward, in bf16 within TF_ROW; where the
+        bf16 forward itself lies beyond TF_ROW from the f32 forward of the
+        same weights (random weights at full depth), the gate runs in f32
+        and bf16 is held to BF16_FLOOR x that distance, as phase 9 does.
+        Takes the parameters out of ``cell`` (the f32 copy needs the room)."""
+        api, params, batch, rec = cell["api"], cell.pop("params"), cell["batch"], cell["rec"]
+        prompts = batch["tokens"]
+        extras = {k_: v_ for k_, v_ in batch.items() if k_ != "tokens"}
+        forced16, full16 = decode_vs_forward(api, params, prompts, t0, TF_STEPS, extras)
+        err16 = rows_err(forced16, full16)
+        label = f"{arch}, positions {t0}-{t0 + TF_STEPS - 1}"
+        if err16 <= TF_ROW:
+            rec.update(teacher_forced(f"{label}, bf16", forced16, full16))
+            return
+        log(f"  {label}: bf16 teacher-forced decode {err16:.3e} per row, above {TF_ROW:.0e}: "
+            f"the gate runs in f32")
+        api32, p32 = as_f32(api, params, dev)
+        del params
+        release()
+        ex32 = {k_: v_.float() for k_, v_ in extras.items()}
+        forced32, full32 = decode_vs_forward(api32, p32, prompts, t0, TF_STEPS, ex32)
+        del p32
+        rec.update(teacher_forced(f"{label}, f32", forced32, full32))
+        floor = rows_err(full16, full32)
+        worst = max(err16, rows_err(forced16, full32))
+        rec["bf16"] = {"decode_vs_forward_row_err": err16, "forward_vs_f32_forward_row_err": floor,
+                       "decode_vs_f32_forward_row_err": rows_err(forced16, full32),
+                       "limit": BF16_FLOOR * floor}
+        log(f"  {label} in bf16: {err16:.3e} from the bf16 forward, "
+            f"{rec['bf16']['decode_vs_f32_forward_row_err']:.3e} from the f32 forward (limit "
+            f"{BF16_FLOOR} x the bf16 forward's distance from f32, {floor:.3e})")
+        if not worst <= BF16_FLOOR * floor:
+            fail(f"{arch}: bf16 teacher-forced decode lies {worst:.3e} per row from the forward")
+
+    for arch, prompt_len, gate in (("whisper-tiny", WHISPER_PROMPT, None),
+                                   ("llama-3.2-vision-11b", LM_PROMPT, VLM_GATE)):
+        cell = dict(zip(("api", "params", "batch", "rec"),
+                        serve_cell(arch, "11", t11, prompt_len, gate)))
+        forced_gate(arch, cell, prompt_len - TF_STEPS)
+        vis_serving[arch] = cell["rec"]
+        del cell
+        release()
+    log(f"  {time.perf_counter() - t11:.1f} s into phase 11")
+    # cut f32 models at full width (TF32 off): the card against the host
+    vis_serving["whisper-tiny-f32"] = card_vs_host(
+        "f32 whisper-tiny", dataclasses.replace(get_config("whisper-tiny"), dtype="float32"), 32)
+    release()
+    vis_serving["llama-3.2-vision-11b-1group-f32"] = card_vs_host(
+        "one f32 group of llama-3.2-vision-11b (4 self + 1 cross)",
+        dataclasses.replace(get_config("llama-3.2-vision-11b"), n_layers=5, dtype="float32"), 32,
+        gate=VLM_GATE)
+    release()
+    launched = {k_: w.launches for k_, w in wrappers.items() if w.launches}
+    if launched:
+        fail(f"encdec and VLM serving launched kernels of the port, where no path calls one: "
+             f"{launched}")
+    vis_serving["phase_s"] = time.perf_counter() - t11
+    log(f"encdec and VLM serving launched no kernel of the port (none lies on its path, in the "
+        f"JAX package either); phase 11 took {vis_serving['phase_s']:.1f} s")
+    record["encdec_vlm_serving"] = vis_serving
 
     # ------------------------------------------------------------------ 6
     # the path whose run each kernel's launches are read from (None: the
@@ -2471,6 +2800,11 @@ def main() -> None:
         "fused_vma_batched": ("hybrid h3 solve_batched k=4, poisson125(64) (7d)",
                               hybrid["batched"]["launches"].get("fused_vma_batched", 0)),
     }
+    family_paths = {
+        "fused_adam_bf16": {f"{arch} (10)": fam_train[arch]["fused_adam_launches_per_step"]
+                            for arch in ("xlstm-1.3b", "zamba2-2.7b", "whisper-tiny")},
+        "fused_adam": {"reduced llama-3.2-vision-11b, f32 (10)": fam_train[
+            "llama-3.2-vision-11b-reduced-f32"]["fused_adam_launches_per_step"]}}
     kernels = []
     for kname, (path, run) in paths.items():
         base = kname.removesuffix("_bf16").removesuffix("_batched").removesuffix("_bf16band")
@@ -2485,6 +2819,8 @@ def main() -> None:
         if kname in hybrid_paths:
             kernels[-1].update(hybrid_path=hybrid_paths[kname][0],
                                hybrid_launches=hybrid_paths[kname][1])
+        if kname in family_paths:  # phase 10's training paths, launches a step
+            kernels[-1]["family_training_launches_per_step"] = family_paths[kname]
     summary = {
         "solves": {e: {kk: v for kk, v in r.items() if kk != "history"}
                    for e, r in {**runs, "cuda+bf16": bf16, "fused_iter bf16 band": band16}.items()},

@@ -3,9 +3,8 @@
 One ``ArchConfig`` dataclass covers the six model families, field for
 field with ``repro.configs.base``; each architecture file instantiates it
 with the published numbers and registers it under its public id
-(``--arch <id>`` in the launchers). The port registers the dense, MoE, SSM
-and hybrid configs; the encoder-decoder and VLM families wait for their
-slices (ROADMAP).
+(``--arch <id>`` in the launchers). The port registers every config of
+the six families.
 """
 from __future__ import annotations
 

@@ -5,10 +5,12 @@ The tests build an operator, a preconditioner or a model with the JAX
 package, take its numpy arrays, and hand them to the port through these
 functions; nothing here imports JAX. ``device`` is required (``None``
 means CUDA). The JAX package stacks each LM layer weight under a leading
-axis per stacked group (``layers``; ``mamba``; ``mlstm`` and ``slstm``);
+axis per stacked group (``layers``; ``mamba``; ``mlstm`` and ``slstm``;
+``enc_layers`` and ``dec_layers``; ``self_layers`` and ``cross_layers``);
 the port keeps one module per layer, so the LM converters only unstack
 (and ``lm_arrays_from_params`` stacks back). The recurrent states of the
-SSM and hybrid families come across whole.
+SSM and hybrid families and the encdec and vlm caches come across whole
+(``state_from_arrays``).
 """
 from __future__ import annotations
 
@@ -218,8 +220,8 @@ def kv_cache_from_arrays(k: np.ndarray, v: np.ndarray, *, device):
 
 
 def state_from_arrays(kind, state, *, device):
-    """The port's recurrent state of NamedTuple type ``kind`` (``ZambaState``,
-    ``XLSTMState``) from the JAX package's NamedTuple of numpy arrays with
+    """The port's recurrent state or cache of NamedTuple type ``kind``
+    (``ZambaState``, ``XLSTMState``, ``EncDecCache``, ``VLMCache``) from the JAX package's NamedTuple of numpy arrays with
     the same fields, each leaf on ``device`` (bf16 carried bit for bit); a
     field whose annotation is itself a NamedTuple (``GLAState``,
     ``KVCache``) is converted to that type."""

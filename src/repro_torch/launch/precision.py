@@ -44,11 +44,15 @@ def rows_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 @torch.no_grad()
-def decode_vs_forward(api, params, prompts: torch.Tensor, t0: int, steps: int = TF_STEPS):
+def decode_vs_forward(api, params, prompts: torch.Tensor, t0: int, steps: int = TF_STEPS,
+                      extras: dict | None = None):
     """(logits of positions t0 .. t0+steps-1 decoded teacher-forced after a
-    t0-token prefill, the full forward's logits of those positions)."""
-    full = api.forward(params, {"tokens": prompts})[:, t0:t0 + steps].clone()
-    _, cache = prefill_cache(api, params, {"tokens": prompts[:, :t0]}, t0 + steps)
+    t0-token prefill, the full forward's logits of those positions);
+    ``extras`` are the family's inputs beside the tokens (frames, image
+    features)."""
+    extras = extras or {}
+    full = api.forward(params, {"tokens": prompts, **extras})[:, t0:t0 + steps].clone()
+    _, cache = prefill_cache(api, params, {"tokens": prompts[:, :t0], **extras}, t0 + steps)
     forced = []
     for pos in range(t0, t0 + steps):
         lg, cache = api.decode(params, prompts[:, pos:pos + 1], cache, pos)
@@ -56,11 +60,15 @@ def decode_vs_forward(api, params, prompts: torch.Tensor, t0: int, steps: int = 
     return torch.cat(forced, dim=1), full
 
 
+@torch.no_grad()
 def as_f32(api, params, dev):
-    """The same model and weights in f32."""
+    """The same model and weights in f32, copied a tensor at a time (no
+    second f32 copy of the model is ever held)."""
     api32 = build_model(dataclasses.replace(api.cfg, dtype="float32"))
     p32 = api32.empty_params(dev)
-    p32.load_state_dict({k: v.float() for k, v in params.state_dict().items()})
+    src = dict(params.named_parameters())
+    for k, t in p32.named_parameters():
+        t.copy_(src[k])
     return api32, p32
 
 
@@ -72,17 +80,20 @@ def host_copy(api, params):
 
 
 @torch.no_grad()
-def card_vs_host(api, params, host, prompts: torch.Tensor) -> dict:
+def card_vs_host(api, params, host, prompts: torch.Tensor, extras: dict | None = None) -> dict:
     """One model on the device (``params``) and on the host CPU (``host``):
     the NEW_TOKENS greedy tokens of ``generate`` on each, and the
     per-row distances of the prefill's logits and of one decode step's
-    (the host's next token fed to both)."""
+    (the host's next token fed to both); ``extras`` (on the device) are the
+    family's inputs beside the tokens."""
     T = prompts.shape[1]
     sc = ServeConfig(max_new_tokens=NEW_TOKENS)
-    got = generate(api, params, {"tokens": prompts}, sc).cpu()
-    want = generate(api, host, {"tokens": prompts.cpu()}, sc)
-    lg_d, c_d = prefill_cache(api, params, {"tokens": prompts}, T + 1)
-    lg_h, c_h = prefill_cache(api, host, {"tokens": prompts.cpu()}, T + 1)
+    dev_batch = {"tokens": prompts, **(extras or {})}
+    host_batch = {k: v.cpu() for k, v in dev_batch.items()}
+    got = generate(api, params, dev_batch, sc).cpu()
+    want = generate(api, host, host_batch, sc)
+    lg_d, c_d = prefill_cache(api, params, dev_batch, T + 1)
+    lg_h, c_h = prefill_cache(api, host, host_batch, T + 1)
     nxt = lg_h[:, -1:].argmax(-1)
     step = rows_err(api.decode(params, nxt.to(prompts.device), c_d, T)[0].cpu(),
                     api.decode(host, nxt, c_h, T)[0])

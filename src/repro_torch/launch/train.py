@@ -85,7 +85,7 @@ def main(argv=None):
     last = {}
 
     def one_step(state, step):
-        batch = batch_to_device(batch_for_step(dc, step, cfg), dev)
+        batch = batch_to_device(batch_for_step(dc, step, cfg), dev, api.dtype)
         state, metrics = train_step(state, batch)
         if step % 10 == 0:
             print(

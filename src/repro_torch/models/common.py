@@ -34,6 +34,7 @@ __all__ = [
     "rope_angles",
     "apply_rope",
     "causal_mask_bias",
+    "require_dtype",
 ]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -95,6 +96,14 @@ class ParamTree(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+
+def require_dtype(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    """An input beside the tokens (encoder frames, image features) must
+    come in the model's dtype, as JAX's ``input_specs`` declares: JAX's bf16
+    models fed f32 raise or quietly promote, and torch's matmul raises."""
+    if t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}; the model takes {dtype}: cast it first")
 
 
 # --------------------------------------------------------------------------

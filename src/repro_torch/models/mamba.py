@@ -29,7 +29,14 @@ from .attention import KVCache, attention, attn_params, init_kv_cache
 from .common import ParamSpec, apply_norm, make_norm_params, rmsnorm
 from .gla import GLAState, gla_chunked, gla_step
 from .mlp import swiglu, swiglu_params
-from .transformer import embed_params, embed_tokens, unembed, write_cache
+from .transformer import (
+    check_remat,
+    embed_params,
+    embed_tokens,
+    remat_call,
+    unembed,
+    write_cache,
+)
 
 __all__ = [
     "ZambaState",
@@ -163,13 +170,13 @@ def zamba_init_state(cfg: ArchConfig, batch: int, max_seq: int, dtype, device=No
     )
 
 
-def zamba_forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, remat: bool = False,
+def zamba_forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, remat=False,
                   return_state: bool = False):
     """Logits (B, T, V); ``return_state=True`` also returns the ZambaState
-    after the T tokens, its KV cache T positions deep."""
-    if remat:
-        raise NotImplementedError("remat waits for the training slice of this family "
-                                  "(ROADMAP A.4)")
+    after the T tokens, its KV cache T positions deep. ``remat`` wraps each
+    Mamba-2 block, not the shared block, as JAX does; no block tags a value,
+    so "save_collectives" recomputes each whole."""
+    check_remat(remat, return_state)
     x = embed_tokens(params, tokens, cfg)
     B, T = tokens.shape
     k = cfg.attn_every
@@ -179,9 +186,13 @@ def zamba_forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, remat: bool 
     for g in range(_n_groups(cfg)):
         for j in range(k):
             li = g * k + j
-            x, st, tail = mamba_apply(params["mamba"][li], x, cfg, None, None, step=False)
-            if return_state:
-                state.ssm.S[li], state.ssm.n[li], state.conv[li] = st.S, st.n, tail
+            if remat:
+                x = remat_call(lambda h, lp=params["mamba"][li]: mamba_apply(
+                    lp, h, cfg, None, None, step=False)[0], remat, x)
+            else:
+                x, st, tail = mamba_apply(params["mamba"][li], x, cfg, None, None, step=False)
+                if return_state:
+                    state.ssm.S[li], state.ssm.n[li], state.conv[li] = st.S, st.n, tail
         x, (kc, vc) = _shared_block_apply(params["shared_attn"], x, cfg)
         if return_state:
             state.attn_kv.k[g], state.attn_kv.v[g] = kc, vc

@@ -1,7 +1,5 @@
-"""Dense MLP block (SwiGLU), as the JAX package's ``models/mlp.py``.
-
-``gelu_mlp`` (the encoder-decoder family's) waits for that family.
-"""
+"""Dense MLP blocks (SwiGLU; the encoder-decoder family's biased GELU),
+as the JAX package's ``models/mlp.py``."""
 from __future__ import annotations
 
 import torch
@@ -9,7 +7,7 @@ import torch.nn.functional as F
 
 from .common import ParamSpec
 
-__all__ = ["swiglu_params", "swiglu"]
+__all__ = ["swiglu_params", "swiglu", "gelu_mlp_params", "gelu_mlp"]
 
 
 def swiglu_params(d: int, f: int) -> dict:
@@ -22,3 +20,18 @@ def swiglu_params(d: int, f: int) -> dict:
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def gelu_mlp_params(d: int, f: int) -> dict:
+    return {
+        "w_up": ParamSpec((d, f)),
+        "b_up": ParamSpec((f,), init="zeros"),
+        "w_down": ParamSpec((f, d)),
+        "b_down": ParamSpec((d,), init="zeros"),
+    }
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
+    return h @ p["w_down"] + p["b_down"]

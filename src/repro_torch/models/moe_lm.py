@@ -10,13 +10,20 @@ layer loop).
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from .attention import KVCache, attention, attn_params
 from .common import apply_norm, make_norm_params
 from .moe import moe_ffn, moe_params
-from .transformer import _stack_kv, embed_params, embed_tokens, unembed, write_cache
+from .transformer import (
+    _stack_kv,
+    check_remat,
+    embed_params,
+    embed_tokens,
+    remat_call,
+    unembed,
+    write_cache,
+)
 
 __all__ = ["moe_lm_layout", "moe_lm_forward", "moe_lm_decode"]
 
@@ -48,21 +55,19 @@ def _moe_layer_apply(lp, x: torch.Tensor, cfg: ArchConfig, *, cache: KVCache | N
     return x + y.reshape(B, T, d), new_kv, aux
 
 
-def moe_lm_forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, remat: bool = False,
+def moe_lm_forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, remat=False,
                    return_cache: bool = False):
     """Returns (logits, aux_loss) or, with ``return_cache``, (logits,
-    aux_loss, (k, v)) with k, v stacked to (L, B, T, KV, hd)."""
-    if remat not in (False, True):
-        raise ValueError(f"remat must be True or False, got {remat!r}")
-    if remat and return_cache:
-        raise ValueError("return_cache needs remat=False")
+    aux_loss, (k, v)) with k, v stacked to (L, B, T, KV, hd). The MoE layer
+    tags nothing, so ``remat="save_collectives"`` recomputes it whole, as
+    in JAX."""
+    check_remat(remat, return_cache)
     x = embed_tokens(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
     for lp in params["layers"]:
         if remat:
-            x, a = checkpoint(lambda h, lp=lp: _moe_layer_apply(lp, h, cfg)[::2], x,
-                              use_reentrant=False)
+            x, a = remat_call(lambda h, lp=lp: _moe_layer_apply(lp, h, cfg)[::2], remat, x)
         else:
             x, kv, a = _moe_layer_apply(lp, x, cfg)
             if return_cache:

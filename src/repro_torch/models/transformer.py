@@ -2,8 +2,13 @@
 JAX package's ``models/transformer.py``.
 
 The JAX package scans one stacked layer body; here the layers are a
-``ModuleList`` walked in a Python loop, and ``remat`` wraps each layer in
-``torch.utils.checkpoint`` where JAX uses ``jax.checkpoint``.
+``ModuleList`` walked in a Python loop, and ``remat_call`` wraps each layer
+in ``torch.utils.checkpoint`` where JAX's ``remat_wrap`` uses
+``jax.checkpoint``. ``remat="save_collectives"`` is JAX's
+``save_only_these_names("attn_out", "mlp_out")``: a torch policy sees ops,
+not names, so ``checkpoint_name`` is a registered identity op
+(``repro_torch::checkpoint_name``) inside such a region, and the
+selective-checkpoint policy saves its outputs and recomputes the rest.
 
 Cached decode: every layer reads its slice of the (L, B, S, KV, hd)
 cache, never writes it, and returns its current-token k/v; after the
@@ -13,9 +18,16 @@ cache in place (PyTorch's idiom) and returns it.
 """
 from __future__ import annotations
 
+import contextvars
+import functools
+
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ArchConfig
 from .attention import KVCache, attention, attn_params
@@ -32,7 +44,73 @@ __all__ = [
     "write_cache",
     "embed_tokens",
     "unembed",
+    "checkpoint_name",
+    "remat_call",
+    "check_remat",
 ]
+
+SAVED_NAMES = ("attn_out", "mlp_out")  # what JAX's "save_collectives" policy keeps
+_TAGGING = contextvars.ContextVar("repro_torch_tagging", default=False)
+
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _tagged(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()  # a custom op may not return its input
+
+
+_tagged.register_autograd(lambda ctx, g: (g, None))
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """JAX's ``checkpoint_name``: the identity, except inside a
+    ``remat="save_collectives"`` region, where it is the op whose output
+    the policy saves."""
+    return _tagged(x, name) if _TAGGING.get() else x
+
+
+def _save_tagged(ctx, op, *args, **kwargs):
+    if op is torch.ops.repro_torch.checkpoint_name.default and args[1] in SAVED_NAMES:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _tagging(fn):
+    """fn run with ``checkpoint_name`` live: in the forward and again in
+    the backward's recompute, so both see the same ops."""
+
+    @functools.wraps(fn)
+    def run(*args):
+        token = _TAGGING.set(True)
+        try:
+            return fn(*args)
+        finally:
+            _TAGGING.reset(token)
+
+    return run
+
+
+def check_remat(remat, returns_cache: bool = False) -> None:
+    """remat is False, True (full) or "save_collectives", as JAX's
+    ``remat_wrap`` takes; a cache or state cannot come out of a remat
+    region."""
+    if remat not in (False, True, "save_collectives"):
+        raise ValueError(f"remat must be False, True or 'save_collectives', got {remat!r}")
+    if remat and returns_cache:
+        raise ValueError("returning a cache or state needs remat=False")
+
+
+def remat_call(fn, remat, *args):
+    """fn(*args), under ``torch.utils.checkpoint`` when ``remat``: True
+    recomputes everything in the backward; "save_collectives" keeps the
+    values tagged ``attn_out`` and ``mlp_out`` and recomputes the rest (a
+    region that tags none is recomputed whole, as in JAX)."""
+    if not remat:
+        return fn(*args)
+    if remat == "save_collectives":
+        return checkpoint(_tagging(fn), *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _save_tagged))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def embed_params(cfg: ArchConfig) -> dict:
@@ -66,9 +144,9 @@ def dense_layer_apply(lp, x: torch.Tensor, cfg: ArchConfig, *, cache: KVCache | 
                       cache_pos=None):
     h = apply_norm(x, lp["attn_norm"], cfg.norm)
     a, new_kv = attention(lp["attn"], h, cfg, cache=cache, cache_pos=cache_pos)
-    x = x + a
+    x = x + checkpoint_name(a, "attn_out")
     h = apply_norm(x, lp["mlp_norm"], cfg.norm)
-    x = x + swiglu(lp["mlp"], h)
+    x = x + checkpoint_name(swiglu(lp["mlp"], h), "mlp_out")
     return x, new_kv
 
 
@@ -84,22 +162,18 @@ def _stack_kv(kvs: list) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
 
 
-def dense_lm_forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, remat: bool = False,
+def dense_lm_forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, remat=False,
                      return_cache: bool = False):
     """Causal forward over full sequences (train / prefill); logits (B, T, V)
     in the parameters' dtype. ``return_cache=True`` also returns the
     per-layer (k, v) stacked to (L, B, T, KV, hd) for the prefill -> decode
     hand-off."""
-    if remat not in (False, True):
-        raise ValueError(f"remat must be True or False, got {remat!r}")
-    if remat and return_cache:
-        raise ValueError("return_cache needs remat=False")
+    check_remat(remat, return_cache)
     x = embed_tokens(params, tokens, cfg)
     kvs = []
     for lp in params["layers"]:
         if remat:
-            x = checkpoint(lambda h, lp=lp: dense_layer_apply(lp, h, cfg)[0], x,
-                           use_reentrant=False)
+            x = remat_call(lambda h, lp=lp: dense_layer_apply(lp, h, cfg)[0], remat, x)
         else:
             x, kv = dense_layer_apply(lp, x, cfg)
             if return_cache:

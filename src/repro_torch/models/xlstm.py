@@ -25,7 +25,7 @@ from ..configs.base import ArchConfig
 from ..kernels.common import resolve_device
 from .common import ParamSpec, apply_norm, make_norm_params
 from .gla import GLAState, gla_chunked, gla_step
-from .transformer import embed_params, embed_tokens, unembed
+from .transformer import check_remat, embed_params, embed_tokens, remat_call, unembed
 
 __all__ = [
     "XLSTMState",
@@ -146,9 +146,11 @@ def _slstm_apply(lp, x: torch.Tensor, cfg: ArchConfig, state, step: bool):
         state = _slstm_cell(lp["r_gates"], state, gates_in[:, 0])
         y = state[2][:, None]
     else:
+        # cast once, not at every step: autograd would keep each step's copy
+        r_gates = lp["r_gates"].to(torch.float32)
         hs = []
         for t in range(T):
-            state = _slstm_cell(lp["r_gates"], state, gates_in[:, t])
+            state = _slstm_cell(r_gates, state, gates_in[:, t])
             hs.append(state[2])
         y = torch.stack(hs, dim=1)  # (B, T, NH, dh)
     y = y.reshape(B, T, d).to(x.dtype)
@@ -176,13 +178,13 @@ def xlstm_init_state(cfg: ArchConfig, batch: int, device=None) -> XLSTMState:
     )
 
 
-def xlstm_forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, remat: bool = False,
+def xlstm_forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, remat=False,
                   return_state: bool = False):
     """Logits (B, T, V); ``return_state=True`` also returns the XLSTMState
-    after the T tokens, each layer's written into one stacked state."""
-    if remat:
-        raise NotImplementedError("remat waits for the training slice of this family "
-                                  "(ROADMAP A.4)")
+    after the T tokens, each layer's written into one stacked state.
+    ``remat`` wraps each mLSTM block, not the sLSTM time loop, as JAX does;
+    no block tags a value, so "save_collectives" recomputes each whole."""
+    check_remat(remat, return_state)
     x = embed_tokens(params, tokens, cfg)
     n_groups, m_per = _split_layers(cfg)
     if return_state:
@@ -190,10 +192,14 @@ def xlstm_forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, remat: bool 
     for g in range(n_groups):
         for j in range(m_per):
             li = g * m_per + j
-            x, st = _mlstm_apply(params["mlstm"][li], x, cfg, None, step=False)
-            if return_state:
-                state.mlstm.S[li], state.mlstm.n[li] = st.S, st.n
-            del st
+            if remat:
+                x = remat_call(lambda h, lp=params["mlstm"][li]: _mlstm_apply(
+                    lp, h, cfg, None, step=False)[0], remat, x)
+            else:
+                x, st = _mlstm_apply(params["mlstm"][li], x, cfg, None, step=False)
+                if return_state:
+                    state.mlstm.S[li], state.mlstm.n[li] = st.S, st.n
+                del st
         x, (c, n, h) = _slstm_apply(params["slstm"][g], x, cfg, None, step=False)
         if return_state:
             state.slstm_c[g], state.slstm_n[g], state.slstm_h[g] = c, n, h

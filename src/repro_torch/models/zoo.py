@@ -1,19 +1,21 @@
-"""Model API, as the JAX package's ``models/zoo.py``, for the dense, MoE,
-SSM (xLSTM) and hybrid (Zamba2) families.
+"""Model API over the six families, as the JAX package's ``models/zoo.py``.
 
     api = build_model(cfg)
     params = api.init_params(generator)     # a ParamTree on generator.device
-    logits = api.forward(params, batch)     # batch = {"tokens": (B, T) int}
+    logits = api.forward(params, batch)     # batch = {"tokens": (B, T) int, ...}
     logits, cache = api.prefill(params, batch)
     cache = api.init_cache(batch_size, max_seq)   # device=None: CUDA
     logits, cache = api.decode(params, token, cache, pos)
 
-The MoE family's ``forward`` returns (logits, aux), as JAX's does. The
-cache is a ``KVCache`` (dense, MoE), an ``XLSTMState`` (ssm: a recurrent
-state, O(1) in the context) or a ``ZambaState`` (hybrid: recurrent
-states and the shared attention block's KV caches); ``decode`` updates
-it in place. The encdec and vlm families wait for their slices (ROADMAP)
-and raise ``NotImplementedError``.
+``batch`` holds "tokens" plus the family's extras, in the model's dtype:
+encdec "frames" (B, enc_seq, d), the stub audio frontend's output; vlm
+"img_feats" (B, n_img_tokens, d), the stub ViT's. The MoE family's
+``forward`` returns (logits, aux), as JAX's does. The cache is a
+``KVCache`` (dense, MoE), an ``XLSTMState`` (ssm: a recurrent state, O(1)
+in the context), a ``ZambaState`` (hybrid: recurrent states and the
+shared attention block's KV caches), an ``EncDecCache`` (the decoder's KV
+caches and the encoder's output) or a ``VLMCache`` (the self layers' KV
+caches and the image features); ``decode`` updates it in place.
 """
 from __future__ import annotations
 
@@ -24,14 +26,17 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.common import resolve_device
+from . import encdec as _encdec
 from . import mamba as _mamba
 from . import moe_lm as _moe
 from . import transformer as _dense
+from . import vlm as _vlm
 from . import xlstm as _xlstm
 from .attention import KVCache, init_kv_cache
 from .common import DTYPES, ParamTree, count_params
 
 __all__ = ["ModelApi", "build_model", "make_generator"]
+
 
 def make_generator(seed: int = 0, device=None) -> torch.Generator:
     """A seeded ``torch.Generator`` on ``device`` (``None`` means CUDA)."""
@@ -59,25 +64,40 @@ class ModelApi:
         """Uninitialised parameters of this layout (for the converter)."""
         return ParamTree(self.layout, dtype=self.dtype, device=resolve_device(device))
 
-    def forward(self, params: ParamTree, batch: dict, remat: bool = False):
-        """Logits (B, T, V); the MoE family returns (logits, aux)."""
+    def _extras(self, batch: dict) -> tuple:
+        """The family's inputs beside the tokens (JAX's ``_batch_extras``)."""
+        if self.cfg.family == "encdec":
+            return (batch["frames"],)
+        if self.cfg.family == "vlm":
+            return (batch["img_feats"],)
+        return ()
+
+    def forward(self, params: ParamTree, batch: dict, remat=False):
+        """Logits (B, T, V); the MoE family returns (logits, aux). ``remat``
+        is False, True or "save_collectives"."""
         fam, tokens = self.cfg.family, batch["tokens"]
-        if fam == "moe":
-            return _moe.moe_lm_forward(params, tokens, self.cfg, remat=remat)
-        if fam == "ssm":
-            return _xlstm.xlstm_forward(params, tokens, self.cfg, remat=remat)
-        if fam == "hybrid":
-            return _mamba.zamba_forward(params, tokens, self.cfg, remat=remat)
-        return _dense.dense_lm_forward(params, tokens, self.cfg, remat=remat)
+        fwd = {"moe": _moe.moe_lm_forward, "ssm": _xlstm.xlstm_forward,
+               "hybrid": _mamba.zamba_forward, "encdec": _encdec.encdec_forward,
+               "vlm": _vlm.vlm_forward}.get(fam, _dense.dense_lm_forward)
+        return fwd(params, tokens, *self._extras(batch), self.cfg, remat=remat)
 
     def prefill(self, params: ParamTree, batch: dict):
         """The full forward over the prompt: (logits (B, T, V), its cache: k/v
-        of (L, B, T, KV, hd), or the recurrent state after the T tokens)."""
+        of (L, B, T, KV, hd) (with ``enc_out`` or ``img_feats`` beside them),
+        or the recurrent state after the T tokens)."""
         fam, tokens = self.cfg.family, batch["tokens"]
         if fam == "ssm":
             return _xlstm.xlstm_forward(params, tokens, self.cfg, return_state=True)
         if fam == "hybrid":
             return _mamba.zamba_forward(params, tokens, self.cfg, return_state=True)
+        if fam == "encdec":
+            logits, (kvs, enc_out) = _encdec.encdec_forward(
+                params, tokens, batch["frames"], self.cfg, return_cache=True)
+            return logits, _encdec.EncDecCache(self_kv=KVCache(*kvs), enc_out=enc_out)
+        if fam == "vlm":
+            logits, kvs = _vlm.vlm_forward(params, tokens, batch["img_feats"], self.cfg,
+                                           return_cache=True)
+            return logits, _vlm.VLMCache(self_kv=KVCache(*kvs), img_feats=batch["img_feats"])
         if fam == "moe":
             logits, _aux, kvs = _moe.moe_lm_forward(params, tokens, self.cfg, return_cache=True)
         else:
@@ -92,6 +112,10 @@ class ModelApi:
             return _xlstm.xlstm_init_state(self.cfg, batch_size, device)
         if fam == "hybrid":
             return _mamba.zamba_init_state(self.cfg, batch_size, max_seq, self.dtype, device)
+        if fam == "encdec":
+            return _encdec.encdec_init_cache(self.cfg, batch_size, max_seq, self.dtype, device)
+        if fam == "vlm":
+            return _vlm.vlm_init_cache(self.cfg, batch_size, max_seq, self.dtype, device)
         return init_kv_cache(self.cfg, batch_size, max_seq, self.cfg.n_layers, self.dtype,
                              device)
 
@@ -99,26 +123,21 @@ class ModelApi:
         """One token (B, 1) at position ``pos``: (logits (B, 1, V), the cache
         updated in place: this token's k/v written at ``pos``, the recurrent
         states stepped)."""
-        fam = self.cfg.family
-        if fam == "moe":
-            return _moe.moe_lm_decode(params, token, cache, pos, self.cfg)
-        if fam == "ssm":
-            return _xlstm.xlstm_decode(params, token, cache, pos, self.cfg)
-        if fam == "hybrid":
-            return _mamba.zamba_decode(params, token, cache, pos, self.cfg)
-        return _dense.dense_lm_decode(params, token, cache, pos, self.cfg)
+        dec = {"moe": _moe.moe_lm_decode, "ssm": _xlstm.xlstm_decode,
+               "hybrid": _mamba.zamba_decode, "encdec": _encdec.encdec_decode,
+               "vlm": _vlm.vlm_decode}.get(self.cfg.family, _dense.dense_lm_decode)
+        return dec(params, token, cache, pos, self.cfg)
 
     def n_params(self) -> int:
         return count_params(self.layout)
 
 
 _LAYOUTS = {"dense": _dense.dense_lm_layout, "moe": _moe.moe_lm_layout,
-            "ssm": _xlstm.xlstm_layout, "hybrid": _mamba.zamba_layout}
+            "ssm": _xlstm.xlstm_layout, "hybrid": _mamba.zamba_layout,
+            "encdec": _encdec.encdec_layout, "vlm": _vlm.vlm_layout}
 
 
 def build_model(cfg: ArchConfig) -> ModelApi:
     if cfg.family not in _LAYOUTS:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: only "
-                                  f"{', '.join(_LAYOUTS)} are (see ROADMAP)")
-    layout = _LAYOUTS[cfg.family](cfg)
-    return ModelApi(cfg=cfg, layout=layout)
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return ModelApi(cfg=cfg, layout=_LAYOUTS[cfg.family](cfg))

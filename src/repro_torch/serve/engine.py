@@ -2,7 +2,8 @@
 
 LM serving: ``generate`` prefills a batch of prompts once, then decodes
 token by token (greedy, or sampled with a temperature) through the
-model's cache: a KV cache, a recurrent state (ssm), or both (hybrid).
+model's cache: a KV cache, a recurrent state (ssm), or both (hybrid);
+encdec and vlm carry ``enc_out`` or ``img_feats`` beside their KV caches.
 JAX runs the decode loop as one ``lax.while_loop``; here
 it is a Python loop over ``api.decode`` that reads the device only to
 stop early once every row has emitted ``eos_id``.
@@ -69,8 +70,9 @@ def _sample(lg: torch.Tensor, temperature: float, generator: torch.Generator) ->
 @torch.no_grad()
 def generate(api: ModelApi, params, batch: dict, sc: ServeConfig = ServeConfig(),
              generator: Optional[torch.Generator] = None, poll_every: int = 8) -> torch.Tensor:
-    """Prefill on batch["tokens"] (B, T), then generate sc.max_new_tokens
-    more on the parameters' device (the prompt is moved there). Returns
+    """Prefill on batch["tokens"] (B, T) and the family's extras, then
+    generate sc.max_new_tokens more on the parameters' device (the batch is
+    moved there). Returns
     (B, T + max_new_tokens) int32: the prompt, the prefill's argmax, then
     the decoded tokens but the last.
 
@@ -83,8 +85,8 @@ def generate(api: ModelApi, params, batch: dict, sc: ServeConfig = ServeConfig()
     ``key``.
     """
     dev = next(params.parameters()).device
-    tokens = batch["tokens"].to(dev)
-    batch = {**batch, "tokens": tokens}
+    batch = {k: v.to(dev) for k, v in batch.items()}  # the prompt and the family's extras
+    tokens = batch["tokens"]
     B, T = tokens.shape
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -117,21 +119,22 @@ def prefill_cache(api: ModelApi, params, batch: dict, max_seq: int):
     (logits (B, T, V), the cache ``api.decode`` steps from position T). The
     SSM family's state has no positions: the prefill's is the cache. The
     hybrid family's recurrent states are the prefill's, and only its
-    shared block's KV caches are allocated at ``max_seq``. No zero state is
-    allocated only to be dropped."""
+    shared block's KV caches are allocated at ``max_seq``; so are only the
+    self-attention caches of the encdec family (beside the prefill's
+    ``enc_out``) and of the vlm family (beside the batch's ``img_feats``).
+    No zero state is allocated only to be dropped."""
     B, T = batch["tokens"].shape
     logits, pf_cache = api.prefill(params, batch)
     fam = api.cfg.family
     if fam == "ssm":
         return logits, pf_cache
-    if fam not in ("dense", "moe", "hybrid"):
-        raise NotImplementedError(f"family {fam!r} is not ported yet (see ROADMAP)")
-    pf_kv = pf_cache.attn_kv if fam == "hybrid" else pf_cache
+    field = {"hybrid": "attn_kv", "encdec": "self_kv", "vlm": "self_kv"}.get(fam)
+    pf_kv = pf_cache if field is None else getattr(pf_cache, field)
     L, _, _, KV, hd = pf_kv.k.shape
     kv = KVCache(*(t.new_zeros((L, B, max_seq, KV, hd)) for t in pf_kv))
     kv.k[:, :, :T] = pf_kv.k
     kv.v[:, :, :T] = pf_kv.v
-    return logits, pf_cache._replace(attn_kv=kv) if fam == "hybrid" else kv
+    return logits, kv if field is None else pf_cache._replace(**{field: kv})
 
 
 def record_bucket(valid: int, size: int) -> None:

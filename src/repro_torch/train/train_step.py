@@ -5,7 +5,8 @@
   the device: the caller reads it only where it prints;
 * optional pipelined clip (the clip consumes the previous step's norm);
 * optional microbatching (gradients accumulated in f32, as JAX's scan
-  does) and remat (``torch.utils.checkpoint`` per layer).
+  does) and remat (``torch.utils.checkpoint`` per layer or block: True,
+  or "save_collectives", which keeps the attention and MLP outputs).
 
 The step updates the parameters and the optimizer state in place and
 returns a new ``TrainState`` that holds them; no scalar leaves the
@@ -30,7 +31,7 @@ __all__ = ["TrainState", "TrainConfig", "make_train_step", "init_train_state", "
 @dataclass(frozen=True)
 class TrainConfig:
     optimizer: AdamWConfig = field(default_factory=AdamWConfig)
-    remat: bool = False
+    remat: bool | str = False  # False, True or "save_collectives", as JAX's
     microbatches: int = 1  # gradient accumulation factor
     z_loss: float = 0.0
     aux_weight: float = 0.01  # MoE load-balance loss weight (0 aux in the dense family)
@@ -49,14 +50,20 @@ def init_train_state(api: ModelApi, generator: torch.Generator) -> TrainState:
                       step=torch.zeros((), dtype=torch.int32, device=generator.device))
 
 
-def batch_to_device(batch: dict, device) -> dict:
+def batch_to_device(batch: dict, device, dtype: torch.dtype | None = None) -> dict:
     """A host batch of numpy arrays as tensors on ``device``; to a CUDA
-    device through pinned memory without waiting for the device."""
+    device through pinned memory without waiting for the device. ``dtype``
+    (the model's) casts the floating inputs, the encdec ``frames`` and vlm
+    ``img_feats`` that ``batch_for_step`` draws in f32, on the device."""
     device = torch.device(device)
-    if device.type == "cpu":
-        return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
-    return {k: torch.from_numpy(np.asarray(v)).pin_memory().to(device, non_blocking=True)
-            for k, v in batch.items()}
+
+    def place(v):
+        t = torch.from_numpy(np.asarray(v))
+        if device.type != "cpu":
+            t = t.pin_memory().to(device, non_blocking=True)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+    return {k: place(v) for k, v in batch.items()}
 
 
 def make_train_step(api: ModelApi, tc: TrainConfig = TrainConfig(),
