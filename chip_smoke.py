@@ -7,7 +7,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. environment: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, TF32 off; the CUDA kernels are built from
-   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a.
+   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a; one line gives
+   the registers, static shared memory and spills (``-Xptxas -v``) of the
+   bf16-band fused_iter lanes' row-tile kernel at K = 2..8, which fails
+   the run if it spills.
 2. the DIA kernels against their plain PyTorch versions on the card, at
    the DIA path's shape (poisson125(128): N = 2,097,152, 125 diagonals)
    and at a ragged poisson27(37) (N = 50,653), padded and unpadded, with
@@ -64,14 +67,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ms per solve to rtol 1e-3 on each path, median of 5.
 6. the serving tier at full width, after 4b and before 5, on the
    poisson125(128) DIA operator and Queen_4147's Bell form built above:
-   (a) the lane-batched entries (fused_iter at poisson125 with an f32 and
-   a bf16 band, spmv_dia in f32 and in bf16 with f32 sums at poisson125,
-   at a 200,003-row operator with isolated offsets over a span far wider
-   than a window and at poisson125(144), whose z-planes take two windows
-   at 8 f32 lanes, fused_vma at Queen's length, spmv_bell at Queen and at a
-   200,000-row Bell operator whose band is far wider than the kernel's
-   window) at k = 1, 3 and 8 against
-   their plain versions and, lane by lane, against the single-rhs kernel
+   (a) the lane-batched entries (fused_iter at poisson125 with an f32
+   band; fused_iter with a bf16 band and spmv_dia in f32 and in bf16 with
+   f32 sums at poisson125, at a 200,003-row operator with isolated offsets
+   over a span far wider than a window and at poisson125(144), whose
+   z-planes take two windows at 8 f32 lanes; fused_vma at Queen's length,
+   spmv_bell at Queen and at a 200,000-row Bell operator whose band is far
+   wider than the kernel's window) at k = 1, 3 and 8 against their plain
+   versions and, lane by lane, against the single-rhs kernel
    (the bf16 one: spmv_dia_cuda with an f32 output), with one inactive
    lane checked bit for bit untouched (an SPMV gives it 0); the script
    prints whether every active lane equals the single kernel bit for bit;
@@ -216,6 +219,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -401,6 +405,7 @@ def main() -> None:
     info = build_info()
     log(f"kernel library: {info['path']} built in {info['seconds']:.1f} s (cached={info['cached']})")
     entry = ""  # ptxas names each kernel before its registers and spills
+    ptxas: dict = {}  # kernel -> registers, static smem bytes, spill bytes
     for line in info["log"].splitlines():
         if "Compiling entry function" in line and "'" in line:
             entry = line.split("'")[1]
@@ -408,10 +413,27 @@ def main() -> None:
             log(f"  nvcc: {line.strip()}")
         elif "registers" in line or "spill" in line:
             log(f"  nvcc: {entry}: {line.strip()}")
+            for key, pat in (("registers", r"Used (\d+) registers"), ("smem", r"(\d+) bytes smem"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads")):
+                m = re.search(pat, line)
+                if m:
+                    ptxas.setdefault(entry, {})[key] = int(m.group(1))
+    # the bf16-band fused_iter lanes' row-tile kernel, one instance a lane count
+    tile_ptxas = {int(re.search(r"ILi(\d+)E", e).group(1)): st for e, st in ptxas.items()
+                  if "fused_iter_tile_kernel" in e}
+    if sorted(tile_ptxas) != list(range(2, 9)):
+        fail(f"ptxas reported fused_iter_tile_kernel for lanes {sorted(tile_ptxas)}, not 2-8")
+    log("fused_iter_tile_kernel (bf16-band lanes) ptxas: " + "; ".join(
+        f"K={k_}: {st.get('registers')} registers, {st.get('smem')} B static smem, spills "
+        f"{st.get('spill_stores')} B stored / {st.get('spill_loads')} B loaded"
+        for k_, st in sorted(tile_ptxas.items())))
+    if any(st.get("spill_stores", 0) or st.get("spill_loads", 0) for st in tile_ptxas.values()):
+        fail("fused_iter_tile_kernel spills registers")
     bw_peak, f32_peak, bf16_peak = peak_rates(name)
     record.update(card=card, device=name, torch=torch.__version__, cuda=torch.version.cuda,
-                  build_seconds=info["seconds"], peak_bytes_per_s=bw_peak,
-                  peak_f32_flops=f32_peak, peak_bf16_flops=bf16_peak)
+                  build_seconds=info["seconds"], fused_iter_tile_ptxas=tile_ptxas,
+                  peak_bytes_per_s=bw_peak, peak_f32_flops=f32_peak, peak_bf16_flops=bf16_peak)
 
     def sync():
         torch.cuda.synchronize()
@@ -1220,25 +1242,26 @@ def main() -> None:
     def bf16_single(op, x1):  # the single-rhs bf16 kernel with the lane entry's f32 output
         return spmv_dia_cuda(op, x1, out_dtype=torch.float32)
 
-    def check_fused_iter_lanes(kn, band, k_l, act, alpha, beta, seed, tag):
-        """fused_iter_batched with an f32 or bf16 band at poisson125(128):
-        against its plain version and, lane by lane, the single instance of
-        the same band; an inactive lane left bit for bit."""
-        vecs = [lanes_of(k_l, N, seed + i) for i in range(9)]
-        want = fused_iter_batched_ref(band, A.offsets, *vecs, inv_a, alpha, beta)
+    def check_fused_iter_lanes(kn, op, band, k_l, act, alpha, beta, seed, tag):
+        """fused_iter_batched with an f32 or bf16 band of ``op``: against its
+        plain version and, lane by lane, the single instance of the same
+        band; an inactive lane left bit for bit."""
+        n_op, inv_op = op.n, (inv_a if op is A else 1.0 / op.diagonal())
+        vecs = [lanes_of(k_l, n_op, seed + i) for i in range(9)]
+        want = fused_iter_batched_ref(band, op.offsets, *vecs, inv_op, alpha, beta)
         lanes_work = [v.clone() for v in vecs[:8]]
         m_out = torch.empty_like(vecs[8])
-        got = fused_iter_batched(band, A.offsets, *lanes_work, vecs[8], m_out, inv_a, alpha, beta,
-                                 act)
+        got = fused_iter_batched(band, op.offsets, *lanes_work, vecs[8], m_out, inv_op, alpha,
+                                 beta, act)
         for lane in range(k_l):
             if not act[lane]:
                 if not (all(torch.equal(v[lane], v0[lane]) for v, v0 in zip(lanes_work, vecs))
                         and torch.equal(m_out[lane], vecs[8][lane])):
                     fail(f"{kn} {tag}: inactive lane {lane} was touched")
                 continue
-            s_out = torch.empty(N, device=dev)
-            single = fused_iter_step(band, A.offsets, *[v[lane].clone() for v in vecs[:8]],
-                                     vecs[8][lane], s_out, inv_a, alpha[lane], beta[lane])
+            s_out = torch.empty(n_op, device=dev)
+            single = fused_iter_step(band, op.offsets, *[v[lane].clone() for v in vecs[:8]],
+                                     vecs[8][lane], s_out, inv_op, alpha[lane], beta[lane])
             for g_v, w_v, s_v in zip(got[:9], want[:9], single[:9]):
                 errs[kn] = max(errs[kn], check(f"{kn} {tag} lane {lane}", g_v[lane], w_v[lane],
                                                **VEC))
@@ -1309,8 +1332,13 @@ def main() -> None:
                        dots_scale(want, lane))
             bits["fused_vma_batched"] &= bool(torch.equal(got[9][lane], single[9]))
         del vecs, want, lanes_work, got
-        for kn, band in (("fused_iter_batched", A.data), ("fused_iter_bf16band", A16.data)):
-            check_fused_iter_lanes(kn, band, k_l, act, alpha, beta, seed + 20, tag)
+        check_fused_iter_lanes("fused_iter_batched", A, A.data, k_l, act, alpha, beta, seed + 20,
+                               tag)
+        # the bf16-band lanes' row tiles on the three DIA operators (n % 4 of
+        # 0, 3 and 0; one, many and two groups of diagonals a z-plane)
+        for op_tag, (op32, op16) in dia_ops.items():
+            check_fused_iter_lanes("fused_iter_bf16band", op32, op16.data, k_l, act, alpha, beta,
+                                   seed + 20, tag + op_tag)
         sync()
         log(f"batched kernels agree with their plain versions and the single kernels ({tag})")
     log(f"batched kernels: each active lane equal bit for bit to the single-rhs kernel: {bits}")
@@ -1421,12 +1449,14 @@ def main() -> None:
         log(f"{kn} (k={KB}): {times[kn][0]:.4f} ms (bound {bounds[kn][0]:.4f} ms, "
             f"{bounds[kn][1]}, {100 * bounds[kn][0] / times[kn][0]:.0f}%), plain "
             f"{times[kn][1]:.3f} ms, library {library.get(kn, float('nan')):.4f} ms")
+    lane_share: dict = {}
     for kn, by_k in lane_ms.items():
         by_k.setdefault(KB, times[kn][0])
         for k_t, ms in sorted(by_k.items()):
             bd = bound_of(*lane_work(kn, k_t), f32_peak)[0]
-            log(f"{kn} k={k_t}: {ms:.4f} ms (bound {bd:.4f} ms, {100 * bd / ms:.0f}%)")
-    record["lane_kernel_ms"] = lane_ms
+            log(f"{kn} k={k_t}: {ms:.4f} ms (bound {bd:.4f} ms, {100 * bd / ms:.1f}% of it)")
+            lane_share.setdefault(kn, {})[k_t] = {"ms": ms, "bound_ms": bd, "share": bd / ms}
+    record["lane_kernel_ms"] = lane_share
 
     # (b) solve_batched at a fixed 200 iterations, k = 1, 2, 4, 8, beside the
     # single solve; the bound of a batched iteration is its kernels' bounds
@@ -1694,7 +1724,6 @@ def main() -> None:
     import contextlib
     import gc
     import io
-    import re
     import tempfile
 
     from repro_torch.data import SyntheticConfig, batch_for_step
@@ -2816,6 +2845,8 @@ def main() -> None:
             "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
             "library_ms": library.get(kname),
         })
+        if kname in lane_share:  # times at k = 2, 4, 8 lanes beside their bounds
+            kernels[-1]["lanes"] = lane_share[kname]
         if kname in hybrid_paths:
             kernels[-1].update(hybrid_path=hybrid_paths[kname][0],
                                hybrid_launches=hybrid_paths[kname][1])

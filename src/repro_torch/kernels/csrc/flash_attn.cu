@@ -79,10 +79,7 @@
 #define FA32_BQ (16 * FA32_WARPS)
 
 // ---------------------------------------------------------------- PTX helpers
-
-static __device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
+// (smem_addr is common.cuh's)
 
 // 16-byte asynchronous copy; ``bytes`` = 0 writes zeros and reads nothing.
 static __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {

@@ -29,8 +29,8 @@ from repro_torch.core.preconditioners import jacobi
 VEC = dict(rtol=1e-5, atol=1e-5)
 DOTS = dict(rtol=1e-4, atol=1e-3)
 TILE = 256  # small Pallas tile: several grid steps
-ALPHA = np.array([0.3, 0.25, 0.37], np.float32)
-BETA = np.array([0.6, 0.81, 0.5], np.float32)
+ALPHA = np.array([0.3, 0.25, 0.37, 0.21, 0.33, 0.28, 0.4, 0.31], np.float32)
+BETA = np.array([0.6, 0.81, 0.5, 0.72, 0.55, 0.9, 0.64, 0.77], np.float32)
 
 
 def _padded(a, n_pad):
@@ -39,10 +39,11 @@ def _padded(a, n_pad):
     return out
 
 
-@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("k", [1, 3, 8])
 def test_bf16_band_iteration_matches_jax(k):
     """One iteration through each core, as one vector (k = 1) and as k = 3
-    lanes (``jax.vmap`` of the JAX core); each lane of the port's batched
+    and 8 lanes (``jax.vmap`` of the JAX core; 8 is the card kernel's widest
+    launch; n = 343 is no multiple of 4); each lane of the port's batched
     plain version is its 1-D version's bits."""
     J, A = operator(7)
     jc = jax_core(J, tile=TILE, interpret=True, data_dtype=jnp.bfloat16)

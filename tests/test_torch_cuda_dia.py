@@ -31,8 +31,8 @@ from repro_torch.sparse import poisson27, poisson125, synthetic_spd_dia
 
 VEC = dict(rtol=1e-5, atol=1e-5)
 SPMV_LANES = (1, 2, 3, 8, 11)  # 11: two launches (8 + 3); lane 1 inactive where k > 1
-# the widest window a group may span at 2-8 bf16 lanes (csrc/spmv_dia.cu's
-# tile plan at 8 lanes: 2,152 columns; f32: 560)
+# the widest window a group may span at 2-8 bf16 lanes (csrc/common.cuh's
+# make_tile_plan at 8 lanes: 2,152 columns; f32: 560)
 WIDEST_GROUP = 2_152
 
 pytestmark = pytest.mark.cuda
@@ -112,45 +112,72 @@ def _assert_dots(got, want, terms):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * scale)
 
 
-@pytest.mark.parametrize("k", [1, 8, 11])
-def test_fused_iter_bf16_band(cuda, k):
-    """The bf16-band instance (make_fused_iter_core(A, data_dtype=bf16)):
-    against its plain version, and each lane bit for bit the single bf16
-    instance on that lane."""
-    A0 = poisson27(37, device=cuda)
-    n_pad = ceil_to(A0.n, BLOCK)
-    data = torch.nn.functional.pad(A0.data, (0, n_pad - A0.n)).to(torch.bfloat16).contiguous()
-    vecs = [_lanes(k, n_pad, 40 + i, cuda) for i in range(9)]
-    for v in vecs:
-        v[:, A0.n:] = 0  # the padded tail is zero, as the solver keeps it
-    inv = torch.nn.functional.pad(1.0 / A0.diagonal(), (0, n_pad - A0.n))
-    alpha = torch.linspace(0.2, 0.4, k, device=cuda)
-    beta = torch.linspace(0.5, 0.7, k, device=cuda)
-    act = _flags(k, cuda)
-    want = fused_iter_batched_ref(data, A0.offsets, *vecs, inv, alpha, beta)
-    work = [v.clone() for v in vecs[:8]]
-    m_out = torch.empty_like(vecs[8])
-    before = fused_iter_batched.launches
-    got = fused_iter_batched(data, A0.offsets, *work, vecs[8], m_out, inv, alpha, beta, act)
-    torch.cuda.synchronize()
-    assert fused_iter_batched.launches == before + -(-k // 8)
-    for lane in range(k):
-        if not act[lane]:
-            for v, v0 in zip(work, vecs[:8]):
-                assert torch.equal(v[lane], v0[lane])
-            assert torch.equal(m_out[lane], vecs[8][lane])
-            assert torch.equal(got[9][lane], torch.zeros(3, device=cuda))
-            continue
-        s_out = torch.empty(n_pad, device=cuda)
-        single = fused_iter_step(data, A0.offsets, *[v[lane].clone() for v in vecs[:8]],
-                                 vecs[8][lane], s_out, inv, alpha[lane], beta[lane])
-        for g, w, s in zip(got[:9], want[:9], single[:9]):
-            torch.testing.assert_close(g[lane], w[lane], **VEC)
-            assert torch.equal(g[lane], s), lane
-        _assert_dots(got[9][lane], want[9][lane],
-                     (want[5][lane] * want[6][lane], want[7][lane] * want[6][lane],
-                      want[6][lane] * want[6][lane]))
-        assert torch.equal(got[9][lane], single[9]), lane
+FUSED_LANES = (1, 2, 3, 4, 5, 6, 7, 8, 11)
+
+
+def _band_case(name, device):
+    """(band, offsets, inv, n, zero tail from) of a bf16-band case: the
+    operators above, a small one below one 1024-row tile (n % 4 == 1), one
+    with n % 4 == 2, and poisson27 padded to whole 256-row blocks with a zero
+    tail, as the solver keeps it (n % 4 == 0)."""
+    if name == "small":
+        A = poisson27(9, device=device)  # N = 729
+    elif name == "n2":
+        A = synthetic_spd_dia(30_002, 27, bandwidth=100, seed=7, device=device)
+    elif name == "padded":
+        A = poisson27(37, device=device)
+        n_pad = ceil_to(A.n, BLOCK)
+        data = torch.nn.functional.pad(A.data, (0, n_pad - A.n))
+        inv = torch.nn.functional.pad(1.0 / A.diagonal(), (0, n_pad - A.n))
+        return data.to(torch.bfloat16).contiguous(), A.offsets, inv, n_pad, A.n
+    else:
+        A = _operator(name, device)
+    return A.data.to(torch.bfloat16).contiguous(), A.offsets, 1.0 / A.diagonal(), A.n, A.n
+
+
+@pytest.mark.parametrize("op", ["padded", "poisson27", "poisson125", "isolated", "wide", "small",
+                                "n2"])
+def test_fused_iter_bf16_band(cuda, op):
+    """The bf16-band instance (make_fused_iter_core(A, data_dtype=bf16)) at
+    1-8 and 11 lanes, on operators whose n % 4 is 0, 1, 2 and 3, one below
+    a row tile and ones with several groups of diagonals: against its plain
+    version, each active lane bit for bit the single bf16 instance on that
+    lane, and the inactive lane untouched."""
+    data, offsets, inv, n, tail = _band_case(op, cuda)
+    assert data.shape == (len(offsets), n)
+    for k in FUSED_LANES:
+        vecs = [_lanes(k, n, 40 + 10 * k + i, cuda) for i in range(9)]
+        for v in vecs:
+            v[:, tail:] = 0
+        alpha = torch.linspace(0.2, 0.4, k, device=cuda)
+        beta = torch.linspace(0.5, 0.7, k, device=cuda)
+        act = _flags(k, cuda)
+        want = fused_iter_batched_ref(data, offsets, *vecs, inv, alpha, beta)
+        work = [v.clone() for v in vecs[:8]]
+        m_out = torch.empty_like(vecs[8])
+        before = fused_iter_batched.launches
+        got = fused_iter_batched(data, offsets, *work, vecs[8], m_out, inv, alpha, beta, act)
+        torch.cuda.synchronize()
+        assert fused_iter_batched.launches == before + -(-k // 8)
+        for lane in range(k):
+            if not act[lane]:
+                for v, v0 in zip(work, vecs[:8]):
+                    assert torch.equal(v[lane], v0[lane]), (k, lane)
+                assert torch.equal(m_out[lane], vecs[8][lane]), (k, lane)
+                assert torch.equal(got[9][lane], torch.zeros(3, device=cuda)), (k, lane)
+                continue
+            s_out = torch.empty(n, device=cuda)
+            single = fused_iter_step(data, offsets, *[v[lane].clone() for v in vecs[:8]],
+                                     vecs[8][lane], s_out, inv, alpha[lane], beta[lane])
+            for g, w, s in zip(got[:9], want[:9], single[:9]):
+                torch.testing.assert_close(g[lane], w[lane], **VEC)
+                assert torch.equal(g[lane], s), (k, lane)
+            _assert_dots(got[9][lane], want[9][lane],
+                         (want[5][lane] * want[6][lane], want[7][lane] * want[6][lane],
+                          want[6][lane] * want[6][lane]))
+            assert torch.equal(got[9][lane], single[9]), (k, lane)
+        if tail < n:
+            assert not any(v[:, tail:].any() for v in got[:9])  # the padded tail stays 0
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        fused_iter_step(data.half(), A0.offsets, *[v[0].clone() for v in vecs[:8]], vecs[8][0],
-                        torch.empty(n_pad, device=cuda), inv, 0.3, 0.6)
+        fused_iter_step(data.half(), offsets, *[v[0].clone() for v in vecs[:8]], vecs[8][0],
+                        torch.empty(n, device=cuda), inv, 0.3, 0.6)
