@@ -209,6 +209,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the card's greedy tokens equal the host's, logits within 1e-4 per row.
    No kernel of the port lies on these paths: the phase fails if one
    launches.
+12. the dry-run tools, after 11: (a) ``launch.dryrun.run_cell`` for the
+   10 configs x 4 shapes x both production meshes (meta device): every
+   cell ok or the quadratic long_500k skip, whisper-tiny train_4k logs
+   its vocab fallback, argument GiB per device and the analytic bound per
+   cell to chip_smoke.json; (b) internlm2-1.8b in bf16 at full width:
+   ``abstract_params()`` bytes equal the growth of the allocator's
+   requested bytes (``torch.cuda.memory_stats()``) across ``init_params``
+   exactly, and ``abstract_train_state``'s that across
+   ``init_train_state``; the growth of ``memory_allocated()`` is printed
+   beside them (blocks: 512-byte rounding, and a cached block handed over
+   whole where a split would leave 1 MiB or less); (c)
+   ``FlopCounterMode`` over that model's forward at (1, 512) within 2% of
+   ``analytic_flops``, the count / analytic ratio of one reduced model of
+   each other family (no gate), and ``analytic_hbm_bytes`` of phase 8's
+   decode steps beside ``decode_step_bytes`` and the measured ms; (d)
+   ``moe_ffn_sharded`` on a (data 2, model 4) mesh of 8 shards on the one
+   card (a 2-layer olmoe-1b-7b at full width in f32, no-drop capacity,
+   (4, 128) tokens): logits within 1e-4 per row of the unsharded forward,
+   aux within 1e-6 (relative) of the mean over the data shards of the
+   unsharded aux on each shard's tokens, one ``model`` all-reduce and one
+   aux all-reduce a layer, both forwards' ms (one card: no speed-up). No
+   kernel of the port lies on these paths: the phase fails if one
+   launches.
 
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -2790,6 +2813,204 @@ def main() -> None:
     log(f"encdec and VLM serving launched no kernel of the port (none lies on its path, in the "
         f"JAX package either); phase 11 took {vis_serving['phase_s']:.1f} s")
     record["encdec_vlm_serving"] = vis_serving
+
+    # ------------------------------------------------------------------ 12
+    # the dry-run tools: the sweep, abstract bytes against the card, the
+    # analytic model against the port's own forward, the sharded MoE
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import list_configs
+    from repro_torch.configs.base import SHAPES, ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analytic import analytic_flops, analytic_hbm_bytes
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import DEFAULT_RULES, make_resolver
+    from repro_torch.models.common import use_sharding_rules
+    from repro_torch.train import abstract_train_state
+
+    release()
+    t12 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    dry = {"card": card}
+
+    # (a) the sweep: 10 configs x 4 shapes x both production meshes (meta)
+    t0 = time.perf_counter()
+    sweep = {}
+    for arch in list_configs():
+        for shape_name in SHAPES:
+            for multi in (False, True):
+                r = dryrun.run_cell(arch, shape_name, multi, verbose=False)
+                tag = f"{arch}_{shape_name}_{'multi' if multi else 'single'}"
+                if r["status"] == "skipped":
+                    if shape_name != "long_500k" or "quadratic" not in r["reason"]:
+                        fail(f"dry-run {tag} skipped: {r['reason']}")
+                    sweep[tag] = {"status": "skipped"}
+                    continue
+                if r["status"] != "ok":
+                    fail(f"dry-run {tag}: {r}")
+                sweep[tag] = {"program": r["program"],
+                              "argument_gib_per_device":
+                                  r["memory"]["argument_bytes_per_device"] / 2**30,
+                              "bound_ms": r["roofline_analytic"]["bound_s"] * 1e3,
+                              "dominant": r["roofline_analytic"]["dominant"],
+                              "fallbacks": len(r["sharding_fallbacks"])}
+                if tag == "whisper-tiny_train_4k_single" and not any(
+                        f["axis"] == "vocab" for f in r["sharding_fallbacks"]):
+                    fail("dry-run whisper-tiny train_4k logged no vocab fallback")
+    n_ok = sum(1 for v in sweep.values() if "program" in v)
+    dry["sweep"] = sweep
+    log(f"12a. dry-run sweep ({card}): {len(sweep)} cells, {n_ok} ok, {len(sweep) - n_ok} "
+        f"quadratic long_500k skips, in {time.perf_counter() - t0:.2f} s (meta device); whisper-"
+        f"tiny train_4k logs its vocab fallback. Argument GiB per device and analytic bound ms "
+        f"(single pod): " + "; ".join(
+            f"{a} {s} {v['argument_gib_per_device']:.3f} GiB {v['bound_ms']:.3f} ms"
+            for a in ("internlm2-1.8b", "olmoe-1b-7b", "qwen2.5-14b") for s in ("train_4k",
+                                                                                 "decode_32k")
+            for v in [sweep[f"{a}_{s}_single"]]))
+
+    # (b) abstract bytes against the card's allocator: internlm2-1.8b, bf16.
+    # The allocator's requested bytes must equal them exactly;
+    # memory_allocated() counts blocks: each request rounded up to 512
+    # bytes, and a cached block handed over whole where splitting it would
+    # leave 1 MiB or less (up to 1 MiB more a request)
+    def alloc_growth(fn):
+        """(fn(), growth of the requested bytes, growth of memory_allocated)."""
+        keys = ("requested_bytes.all.current", "allocated_bytes.all.current")
+        sync()
+        st0 = torch.cuda.memory_stats()
+        if any(k_ not in st0 for k_ in keys):
+            fail(f"torch.cuda.memory_stats() lacks {keys}")
+        out = fn()
+        sync()
+        st1 = torch.cuda.memory_stats()
+        return (out,) + tuple(st1[k_] - st0[k_] for k_ in keys)
+
+    cfg12 = get_config("internlm2-1.8b")
+    api12 = build_model(cfg12)
+    abs_bytes = sum(p_.numel() * p_.element_size() for p_ in api12.abstract_params().parameters())
+    gen12 = make_generator(0, dev)
+    params12, req, grown = alloc_growth(lambda: api12.init_params(gen12))
+    n_params12 = len(list(params12.parameters()))
+    if req != abs_bytes:
+        fail(f"abstract_params gives {abs_bytes:,} bytes, init_params requested {req:,}")
+    del params12
+    release()
+    st_abs = abstract_train_state(api12)
+    st_leaves = (list(st_abs.params.parameters()) + list(st_abs.opt.m.values())
+                 + list(st_abs.opt.v.values()) + [st_abs.opt.step, st_abs.opt.prev_norm,
+                                                  st_abs.step])
+    st_bytes = sum(t_.numel() * t_.element_size() for t_ in st_leaves)
+    gen12 = make_generator(0, dev)
+    state12, st_req, st_grown = alloc_growth(lambda: init_train_state(api12, gen12))
+    if st_req != st_bytes:
+        fail(f"abstract_train_state gives {st_bytes:,} bytes, init_train_state requested "
+             f"{st_req:,}")
+    dry["abstract_bytes"] = {"params": abs_bytes, "params_requested": req,
+                             "params_allocated": grown, "params_tensors": n_params12,
+                             "train_state": st_bytes, "train_state_requested": st_req,
+                             "train_state_allocated": st_grown,
+                             "train_state_tensors": len(st_leaves)}
+    log(f"12b. ({card}) internlm2-1.8b bf16: abstract_params {abs_bytes:,} bytes = init_params' requested "
+        f"bytes {req:,} (memory_allocated grew {grown:,}: {grown - abs_bytes:,} more over "
+        f"{n_params12} tensors); abstract_train_state {st_bytes:,} bytes = init_train_state's "
+        f"requested {st_req:,} (memory_allocated grew {st_grown:,}: {st_grown - st_bytes:,} "
+        f"more over {len(st_leaves)} tensors)")
+
+    # (c) FlopCounterMode over the port's forward against analytic_flops
+    B12, T12 = 1, 512
+    toks = torch.randint(0, cfg12.vocab_size, (B12, T12), device=dev,
+                         generator=make_generator(1, dev), dtype=torch.int32)
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        api12.forward(state12.params, {"tokens": toks})
+    counted = fc.get_total_flops()
+    want = analytic_flops(cfg12, ShapeConfig("prefill_512", T12, B12, "prefill"))
+    ratio = counted / want
+    log(f"12c. ({card}) internlm2-1.8b bf16 forward at ({B12}, {T12}): FlopCounterMode {counted:,} FLOPs, "
+        f"analytic_flops {want:,.0f}: ratio {ratio:.6f}")
+    if not abs(ratio - 1) <= 0.02:
+        fail(f"FlopCounterMode / analytic_flops = {ratio:.4f}, beyond 2%")
+    del state12, st_abs, st_leaves, toks
+    release()
+    ratios = {"internlm2-1.8b": ratio}
+    for arch in ("olmoe-1b-7b", "xlstm-1.3b", "zamba2-2.7b", "whisper-tiny",
+                 "llama-3.2-vision-11b"):
+        cfg_r = reduced(get_config(arch))
+        api_r = build_model(cfg_r)
+        p_r = api_r.init_params(make_generator(0, dev))
+        batch_r = {"tokens": torch.randint(0, cfg_r.vocab_size, (2, 64), device=dev,
+                                           generator=make_generator(1, dev), dtype=torch.int32),
+                   **extras_for(cfg_r, 2, make_generator(2, dev), api_r.dtype, dev)}
+        with FlopCounterMode(display=False) as fc, torch.no_grad():
+            api_r.forward(p_r, batch_r)
+        ratios[f"{arch} (reduced)"] = fc.get_total_flops() / analytic_flops(
+            cfg_r, ShapeConfig("prefill_64", 64, 2, "prefill"))
+        del p_r, batch_r
+    dry["flop_counter_over_analytic"] = ratios
+    log("    count / analytic, reduced models at (2, 64), no gate: " + ", ".join(
+        f"{k_} {v_:.4f}" for k_, v_ in ratios.items() if k_ != "internlm2-1.8b"))
+    hbm = {}
+    for arch in ("internlm2-1.8b", "olmoe-1b-7b"):
+        cfg_h = get_config(arch)
+        seq = LM_PROMPT + LM_NEW
+        a_bytes = analytic_hbm_bytes(cfg_h, ShapeConfig("decode", seq, LM_BATCH, "decode"))
+        d_bytes = decode_step_bytes(cfg_h, LM_BATCH, seq)
+        hbm[arch] = {"analytic_hbm_bytes": a_bytes, "decode_step_bytes": d_bytes,
+                     "analytic_ms": a_bytes / HW["hbm_bw"] * 1e3,
+                     "decode_step_bytes_ms": d_bytes / HW["hbm_bw"] * 1e3,
+                     "measured_ms": serving[arch]["ms_per_decode_step"]}
+        log(f"    {arch} decode step (phase 8: batch {LM_BATCH}, {seq}-position cache): "
+            f"analytic_hbm_bytes {a_bytes:,.0f} ({hbm[arch]['analytic_ms']:.4f} ms), "
+            f"decode_step_bytes {d_bytes:,} ({hbm[arch]['decode_step_bytes_ms']:.4f} ms), "
+            f"measured {hbm[arch]['measured_ms']:.4f} ms")
+    dry["decode_bytes"] = hbm
+
+    # (d) the sharded MoE on the one card: a (data 2, model 4) mesh of 8 shards
+    cfg_m = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=2, dtype="float32")
+    cfg_m = dataclasses.replace(cfg_m, moe_capacity_factor=float(cfg_m.n_experts))
+    api_m = build_model(cfg_m)
+    p_m = api_m.init_params(make_generator(0, dev))
+    toks_m = torch.randint(0, cfg_m.vocab_size, (4, 128), device=dev,
+                           generator=make_generator(1, dev), dtype=torch.int32)
+    mesh_m = Mesh(np.array([dev] * 8, dtype=object).reshape(2, 4), ("data", "model"))
+    with torch.no_grad():
+        ref_m, ref_aux = api_m.forward(p_m, {"tokens": toks_m})
+        shard_aux = [float(api_m.forward(p_m, {"tokens": toks_m[2 * s:2 * s + 2]})[1])
+                     for s in range(2)]
+        unsharded_ms = timed(lambda: api_m.forward(p_m, {"tokens": toks_m}), 1, 3)
+        with use_sharding_rules(make_resolver(mesh_m, DEFAULT_RULES()), mesh_m):
+            got_m, got_aux = api_m.forward(p_m, {"tokens": toks_m})
+            counts_m = dict(mesh_m.counts)
+            sharded_ms = timed(lambda: api_m.forward(p_m, {"tokens": toks_m}), 1, 3)
+    row_m = rows_err(got_m, ref_m)
+    aux_want = sum(shard_aux) / 2
+    aux_err = abs(float(got_aux) - aux_want) / abs(aux_want)
+    dry["sharded_moe"] = {"row_err": row_m, "aux": float(got_aux), "aux_want": aux_want,
+                          "aux_rel_err": aux_err, "unsharded_aux": float(ref_aux),
+                          "counts": counts_m, "unsharded_ms": unsharded_ms,
+                          "sharded_ms": sharded_ms}
+    log(f"12d. ({card}) sharded MoE, 2-layer olmoe-1b-7b at full width in f32, no-drop capacity, (4, 128) "
+        f"tokens on a (data 2, model 4) mesh of 8 shards on the one card: logits {row_m:.3e} per "
+        f"row from the unsharded forward; aux {float(got_aux):.7f} against the data shards' mean "
+        f"{aux_want:.7f} (rel {aux_err:.2e}; the whole batch's {float(ref_aux):.7f}); collectives "
+        f"{counts_m}; forward {unsharded_ms:.3f} ms unsharded, {sharded_ms:.3f} ms sharded (one "
+        f"card: no speed-up claimed)")
+    if not row_m <= F32_ROW:
+        fail(f"sharded MoE logits lie {row_m:.3e} per row from the unsharded forward")
+    if not aux_err <= 1e-6:
+        fail(f"sharded MoE aux {float(got_aux)} != the data shards' mean {aux_want}")
+    if counts_m != {"allreduce": 2 * cfg_m.n_layers, "allreduce.model": cfg_m.n_layers,
+                    "allreduce.aux": cfg_m.n_layers}:
+        fail(f"sharded MoE counted {counts_m}: not one model and one aux all-reduce a layer")
+    del p_m, ref_m, got_m
+    release()
+    launched = {k_: w.launches for k_, w in wrappers.items() if w.launches}
+    if launched:
+        fail(f"the dry-run tools launched kernels of the port, where no path calls one: "
+             f"{launched}")
+    dry["phase_s"] = time.perf_counter() - t12
+    log(f"the dry-run tools launched no kernel of the port; phase 12 took {dry['phase_s']:.1f} s")
+    record["dry_run"] = dry
 
     # ------------------------------------------------------------------ 6
     # the path whose run each kernel's launches are read from (None: the

@@ -28,7 +28,10 @@ rank (SPMD); a rank that posts another kind there raises.
   (the hierarchical form adds each pod in rank order, then the pod sums
   in pod order), and every rank gets those same bits on its device. Each
   rank's convergence test then reads the same numbers, so no shard stops
-  while another waits.
+  while another waits. Over a mesh with named axes an all-reduce may sum
+  over some of them only (``psum(t, "model")``): each group of ranks that
+  share their other coordinates adds in rank order, and the whole is one
+  collective.
 * No hang: a rank that raises aborts the communicator, and every wait
   then raises :class:`MeshAborted`; every wait gives up after
   ``RENDEZVOUS_TIMEOUT_S`` (a first call may build the CUDA kernels
@@ -41,6 +44,7 @@ seconds spent blocked in waits, by kind (``wait_s``).
 """
 from __future__ import annotations
 
+import math
 import threading
 import time
 from collections import Counter, defaultdict
@@ -217,18 +221,36 @@ class ShardComm:
     def sub(self) -> Optional[int]:
         return self.comm.mesh.sub
 
-    def allreduce(self, t: torch.Tensor, *, hierarchical: bool = False, tag: str = "") -> Handle:
+    def axis_index(self, name: str) -> int:
+        """This rank's coordinate on the mesh axis ``name``."""
+        return self.comm.mesh.coords(self.rank)[name]
+
+    def allreduce(self, t: torch.Tensor, *, hierarchical: bool = False, axes=None,
+                  tag: str = "") -> Handle:
         """Post ``t`` to a sum over all ranks (``psum``). ``hierarchical``
         adds within each pod of ``sub`` ranks first, then across pods:
-        two collectives, counted as two."""
+        two collectives, counted as two. ``axes`` (a mesh axis name, or a
+        tuple of them) sums only over the ranks that share this rank's
+        coordinates on the other axes (``psum(t, axes)``), in rank order:
+        one collective."""
         if hierarchical and self.sub is None:
             raise ValueError("a hierarchical all-reduce needs a (pod, sub) mesh "
                              "(make_solver_mesh(n, sub=...))")
+        if hierarchical and axes is not None:
+            raise ValueError("an all-reduce is hierarchical or over named axes, not both")
+        group = None if axes is None else self.comm.mesh.group(self.rank, axes)
         seq = self.comm._post(self.rank, "allreduce", t, 2 if hierarchical else 1, tag)
         sub, dev = self.sub, self.device
 
         def finish(slot):
             with slot.lock:
+                if group is not None:  # one sum a group, in rank order
+                    if slot.result is None:
+                        slot.result = {}
+                    if group not in slot.result:
+                        total = _sum_in_order([slot.parts[r].host() for r in group])
+                        slot.result[group] = total.pin_memory() if self.comm.pin else total
+                    return slot.result[group].to(dev, non_blocking=True)
                 if slot.result is None:
                     parts = [p.host() for p in slot.parts]
                     if hierarchical:
@@ -279,16 +301,20 @@ def _indexed(d: torch.device) -> torch.device:
 
 
 class SolverMesh:
-    """One ``torch.device`` per shard, optionally as a (pod, sub) grid.
+    """One ``torch.device`` per shard, optionally as a (pod, sub) grid or
+    as a grid of named axes.
 
     ``devices`` lists the shards' devices in rank order (a device may
     repeat: several host shards, or several shards on one card). With
     ``sub=k`` the ranks form ``n // k`` pods of k consecutive ranks, the
     2-D mesh the hierarchical "h4" reducer needs; the linear rank order is
-    kept, so every SPMV strategy keeps its ring order.
+    kept, so every SPMV strategy keeps its ring order. ``axes`` (an
+    ordered {name: size} mapping whose sizes multiply to the shard count)
+    lays the ranks out row-major over named axes, as a ``shard_map`` mesh
+    (``launch/mesh.py``), for all-reduces over some of them.
     """
 
-    def __init__(self, devices: Sequence, sub: Optional[int] = None):
+    def __init__(self, devices: Sequence, sub: Optional[int] = None, axes=None):
         self.devices: Tuple[torch.device, ...] = tuple(_indexed(torch.device(d))
                                                        for d in devices)
         n = len(self.devices)
@@ -297,7 +323,11 @@ class SolverMesh:
         if sub is not None and (sub < 1 or n % sub):
             raise ValueError(f"sub-axis size {sub} must divide the shard count {n} "
                              "(pods of equal size)")
+        if axes is not None and (sub is not None or math.prod(axes.values()) != n):
+            raise ValueError(f"named axes {dict(axes)} must multiply to the shard count {n}, "
+                             "without sub")
         self.sub = sub
+        self.axes = None if axes is None else dict(axes)
 
     @property
     def n_shards(self) -> int:
@@ -305,11 +335,34 @@ class SolverMesh:
 
     @property
     def shape(self) -> Tuple[int, ...]:
+        if self.axes is not None:
+            return tuple(self.axes.values())
         return (self.n_shards,) if self.sub is None else (self.n_shards // self.sub, self.sub)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
+        if self.axes is not None:
+            return tuple(self.axes)
         return ("rows",) if self.sub is None else ("pod", "rows")
+
+    def coords(self, rank: int) -> dict:
+        """{axis name: coordinate} of ``rank`` (row-major over the axes)."""
+        out = {}
+        for name, size in reversed(list(zip(self.axis_names, self.shape))):
+            rank, out[name] = divmod(rank, size)
+        return {name: out[name] for name in self.axis_names}
+
+    def group(self, rank: int, axes) -> Tuple[int, ...]:
+        """The ranks, in order, that share ``rank``'s coordinates on every
+        axis but ``axes`` (a name or a tuple of names): a ``psum(., axes)``
+        group."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = set(axes) - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"no mesh axis {sorted(unknown)} in {self.axis_names}")
+        mine = self.coords(rank)
+        return tuple(r for r in range(self.n_shards)
+                     if all(c == mine[a] for a, c in self.coords(r).items() if a not in axes))
 
     def run(self, fn: Callable[[ShardComm], object],
             timeout: float = RENDEZVOUS_TIMEOUT_S) -> Tuple[list, Communicator]:

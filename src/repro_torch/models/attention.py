@@ -22,7 +22,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.common import resolve_device
-from .common import ParamSpec, apply_rope, causal_mask_bias, rmsnorm, rope_angles
+from .common import ParamSpec, apply_rope, causal_mask_bias, rmsnorm, rope_angles, shard_hint
 
 __all__ = ["attn_params", "cross_attn_params", "attention", "cross_attention", "KVCache",
            "init_kv_cache"]
@@ -48,24 +48,24 @@ def attn_params(cfg: ArchConfig) -> dict:
     hd = cfg.head_dim_
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
     p = {
-        "wq": ParamSpec((d, qd)),
-        "wk": ParamSpec((d, kvd)),
-        "wv": ParamSpec((d, kvd)),
-        "wo": ParamSpec((qd, d)),
+        "wq": ParamSpec((d, qd), ("embed", "heads_flat")),
+        "wk": ParamSpec((d, kvd), ("embed", "kv_flat")),
+        "wv": ParamSpec((d, kvd), ("embed", "kv_flat")),
+        "wo": ParamSpec((qd, d), ("heads_flat", "embed")),
     }
     if cfg.qkv_bias:
-        p["bq"] = ParamSpec((qd,), init="zeros")
-        p["bk"] = ParamSpec((kvd,), init="zeros")
-        p["bv"] = ParamSpec((kvd,), init="zeros")
+        p["bq"] = ParamSpec((qd,), ("heads_flat",), init="zeros")
+        p["bk"] = ParamSpec((kvd,), ("kv_flat",), init="zeros")
+        p["bv"] = ParamSpec((kvd,), ("kv_flat",), init="zeros")
     if cfg.qk_norm:
-        p["q_norm"] = ParamSpec((hd,), init="ones")
-        p["k_norm"] = ParamSpec((hd,), init="ones")
+        p["q_norm"] = ParamSpec((hd,), (None,), init="ones")
+        p["k_norm"] = ParamSpec((hd,), (None,), init="ones")
     return p
 
 
 def cross_attn_params(cfg: ArchConfig) -> dict:
     p = attn_params(cfg)
-    p["gate"] = ParamSpec((1,), init="zeros")  # llama-vision tanh gate
+    p["gate"] = ParamSpec((1,), (None,), init="zeros")  # llama-vision tanh gate
     return p
 
 
@@ -176,11 +176,13 @@ def attention(p, x: torch.Tensor, cfg: ArchConfig, *, positions: Optional[torch.
     k = apply_rope(k, cos, sin)
     if cache is not None:
         out = _sdpa_decode(q, k, v, cache, cache_pos, n_rep)
-    elif cfg.attn_chunk > 0 and causal and T % cfg.attn_chunk == 0 and T > cfg.attn_chunk:
-        out = _sdpa_blocked(q, k, v, n_rep, cfg.attn_chunk)
     else:
-        bias = causal_mask_bias(T, T, device=x.device) if causal else None
-        out = _sdpa(q, k, v, bias, n_rep)
+        q = shard_hint(q, ("batch", None, "heads", None))
+        if cfg.attn_chunk > 0 and causal and T % cfg.attn_chunk == 0 and T > cfg.attn_chunk:
+            out = _sdpa_blocked(q, k, v, n_rep, cfg.attn_chunk)
+        else:
+            bias = causal_mask_bias(T, T, device=x.device) if causal else None
+            out = _sdpa(q, k, v, bias, n_rep)
     out = out.reshape(B, T, cfg.n_heads * hd)
     return out @ p["wo"], (k, v)
 

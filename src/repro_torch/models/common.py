@@ -1,22 +1,31 @@
 """Shared model-building blocks: the parameter layout, norms and RoPE.
 
-Parameters are declared as a nested dict of ``ParamSpec(shape, init)``,
-as in the JAX package; lists stand for per-layer stacks. From that one
-layout the port derives the parameter count (no allocation) and a
+Parameters are declared as a nested dict of ``ParamSpec(shape,
+logical_axes, init)``, as in the JAX package; lists stand for per-layer
+stacks. From that one layout the port derives the parameter count, an
+abstract tree of ``meta`` tensors (no allocation; the dry-run), the
+logical axes that ``launch/sharding.py`` maps to mesh axes, and a
 ``ParamTree`` module that holds one ``nn.Parameter`` per spec. The JAX
 package stacks each layer weight under a leading ``layers`` axis; here
 every layer is its own module (a ``ModuleList``), so a per-layer weight
-gets a gradient of its own size, and ``convert.lm_params_from_arrays``
-only unstacks. ``x @ W`` keeps W as (d_in, d_out), as in JAX.
+gets a gradient of its own size, its axes have no ``layers`` entry, and
+``convert.lm_params_from_arrays`` only unstacks. ``x @ W`` keeps W as
+(d_in, d_out), as in JAX.
 
-The JAX package's sharding hints (``shard_hint``, ``use_sharding_rules``)
-have no one-card counterpart.
+Sharding hints: models call ``shard_hint(x, axes)`` on activations at the
+JAX package's call sites. Outside ``use_sharding_rules`` it does nothing.
+Under it, it calls the resolver, so the rules log the hints they cannot
+honour, as JAX's do; but it returns ``x`` unchanged: the port has no SPMD
+partitioner for a constraint to steer (a sharded run places each shard's
+slice itself, ``launch/mesh.shard_map``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,6 +36,11 @@ __all__ = [
     "ParamTree",
     "init_tensor",
     "count_params",
+    "abstract",
+    "logical_axes_tree",
+    "use_sharding_rules",
+    "current_mesh",
+    "shard_hint",
     "make_norm_params",
     "rmsnorm",
     "layernorm",
@@ -43,8 +57,13 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axis names, len == len(shape)
     init: str = "normal"  # normal | zeros | ones
     scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"ParamSpec shape {self.shape} has axes {self.axes}")
 
 
 def init_tensor(spec: ParamSpec, dtype: torch.dtype, generator: torch.Generator | None,
@@ -75,6 +94,15 @@ def count_params(layout) -> int:
     return sum(count_params(x) for x in layout.values())
 
 
+def logical_axes_tree(layout):
+    """The layout's logical axis names, leaf for leaf."""
+    if isinstance(layout, ParamSpec):
+        return layout.axes
+    if isinstance(layout, list):
+        return [logical_axes_tree(x) for x in layout]
+    return {k: logical_axes_tree(v) for k, v in layout.items()}
+
+
 class ParamTree(nn.Module):
     """A module holding one parameter per ``ParamSpec`` of a layout; nested
     dicts become submodules and lists ``ModuleList``s. ``p["wq"]`` reads a
@@ -98,6 +126,52 @@ class ParamTree(nn.Module):
         return getattr(self, name)
 
 
+# --------------------------------------------------------------------------
+# sharding-hint context (installed by launch/sharding.py)
+# --------------------------------------------------------------------------
+
+_ACTIVE_RULES: contextvars.ContextVar = contextvars.ContextVar("repro_torch_sharding_rules",
+                                                               default=None)
+_ACTIVE_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_active_mesh",
+                                                              default=None)
+
+
+@contextlib.contextmanager
+def use_sharding_rules(resolver: Callable, mesh=None):
+    """resolver(shape, logical_axes) -> NamedSharding | None, called by
+    every ``shard_hint`` inside the block. ``mesh`` (optional) also
+    exposes the mesh to the modules that run per-shard regions (the
+    sharded MoE dispatch) through ``current_mesh()``."""
+    token = _ACTIVE_RULES.set(resolver)
+    token_m = _ACTIVE_MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _ACTIVE_RULES.reset(token)
+        _ACTIVE_MESH.reset(token_m)
+
+
+def current_mesh():
+    return _ACTIVE_MESH.get()
+
+
+def shard_hint(x: torch.Tensor, axes: Tuple[Optional[str], ...]) -> torch.Tensor:
+    """``x`` unchanged. Under ``use_sharding_rules`` the resolver sees the
+    hint first (and logs a rule it drops); JAX then constrains x's layout,
+    which has no counterpart without an SPMD partitioner."""
+    resolver = _ACTIVE_RULES.get()
+    if resolver is not None:
+        resolver(tuple(x.shape), axes)
+    return x
+
+
+def abstract(layout, dtype: torch.dtype) -> ParamTree:
+    """The layout's ``ParamTree`` on the ``meta`` device: every parameter's
+    shape and dtype, no storage (JAX's ShapeDtypeStruct tree for the
+    dry-run)."""
+    return ParamTree(layout, dtype=dtype, device="meta")
+
+
 def require_dtype(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
     """An input beside the tokens (encoder frames, image features) must
     come in the model's dtype, as JAX's ``input_specs`` declares: JAX's bf16
@@ -112,8 +186,9 @@ def require_dtype(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
 
 def make_norm_params(d: int, kind: str) -> dict:
     if kind == "rmsnorm":
-        return {"scale": ParamSpec((d,), init="ones")}
-    return {"scale": ParamSpec((d,), init="ones"), "bias": ParamSpec((d,), init="zeros")}
+        return {"scale": ParamSpec((d,), ("embed",), init="ones")}
+    return {"scale": ParamSpec((d,), ("embed",), init="ones"),
+            "bias": ParamSpec((d,), ("embed",), init="zeros")}
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

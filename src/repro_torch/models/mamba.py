@@ -65,13 +65,13 @@ def mamba_block_params(cfg: ArchConfig) -> dict:
     conv_ch = din + 2 * st  # x, B, C go through the conv
     return {
         "norm": make_norm_params(d, cfg.norm),
-        "w_in": ParamSpec((d, 2 * din + 2 * st + nh)),
-        "conv_w": ParamSpec((_CONV_K, conv_ch), scale=0.5),
-        "A_log": ParamSpec((nh,), init="zeros"),
-        "D": ParamSpec((nh,), init="ones"),
-        "dt_bias": ParamSpec((nh,), init="zeros"),
-        "out_norm": {"scale": ParamSpec((din,), init="ones")},
-        "w_out": ParamSpec((din, d)),
+        "w_in": ParamSpec((d, 2 * din + 2 * st + nh), ("embed", "mlp")),
+        "conv_w": ParamSpec((_CONV_K, conv_ch), (None, "mlp"), scale=0.5),
+        "A_log": ParamSpec((nh,), (None,), init="zeros"),
+        "D": ParamSpec((nh,), (None,), init="ones"),
+        "dt_bias": ParamSpec((nh,), (None,), init="zeros"),
+        "out_norm": {"scale": ParamSpec((din,), ("mlp",), init="ones")},
+        "w_out": ParamSpec((din, d), ("mlp", "embed")),
     }
 
 

@@ -1,32 +1,38 @@
 """Mixture-of-Experts FFN: top-k routing with capacity-bounded dispatch,
-as the JAX package's ``models/moe.py`` (``moe_ffn``).
+as the JAX package's ``models/moe.py``.
 
-GShard-style "dropping" dispatch: each token's top-k assignments are
-ranked within their expert (earlier tokens first) and written into an
-(E, C, d) buffer; an assignment ranked C or later is dropped. The SwiGLU
-experts are batched matrix products over the buffer, and the combine
-weights each kept assignment's output by its gate.
-
-The JAX package's ``moe_ffn_sharded`` (a ``shard_map`` over a ``model``
-mesh axis) has no one-card counterpart; on one device JAX's MoE layer
-takes ``moe_ffn`` too.
+* ``moe_ffn``: GShard-style "dropping" dispatch. Each token's top-k
+  assignments are ranked within their expert (earlier tokens first) and
+  written into an (E, C, d) buffer; an assignment ranked C or later is
+  dropped. The SwiGLU experts are batched matrix products over the
+  buffer, and the combine weights each kept assignment's output by its
+  gate.
+* ``moe_ffn_sharded``: the same layer as an explicit ``shard_map`` over a
+  (data, model) mesh (``launch/mesh.shard_map``). Activations are
+  replicated over the model axis, so every shard holds its data shard's
+  tokens and its E/M experts: it routes its tokens, keeps only the
+  assignments to its own experts, runs them, and ONE ``psum`` over
+  "model" adds the expert shards' partial outputs. The capacity is per
+  (data shard x expert). Forward only: its backward is not ported.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec
+from .common import ParamSpec, current_mesh, shard_hint
 
-__all__ = ["moe_params", "moe_ffn", "moe_capacity", "top_k_stable"]
+__all__ = ["moe_params", "moe_ffn", "moe_ffn_sharded", "moe_capacity", "top_k_stable"]
 
 
 def moe_params(d: int, f: int, n_experts: int) -> dict:
     return {
-        "router": ParamSpec((d, n_experts)),
-        "w_gate": ParamSpec((n_experts, d, f)),
-        "w_up": ParamSpec((n_experts, d, f)),
-        "w_down": ParamSpec((n_experts, f, d)),
+        "router": ParamSpec((d, n_experts), ("embed", None)),
+        "w_gate": ParamSpec((n_experts, d, f), ("experts", "embed", "expert_mlp")),
+        "w_up": ParamSpec((n_experts, d, f), ("experts", "embed", "expert_mlp")),
+        "w_down": ParamSpec((n_experts, f, d), ("experts", "expert_mlp", "embed")),
     }
 
 
@@ -43,6 +49,60 @@ def top_k_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _route(x: torch.Tensor, router: torch.Tensor, top_k: int, capacity_factor: float,
+           norm_topk: bool):
+    """Top-k routing of x (T, d) over E experts, and each assignment's rank
+    within its expert (stable: earlier tokens first). Returns (probs (T, E)
+    f32, gates (T, k), experts (T, k), pos (T*k,), the capacity C)."""
+    T, E = x.shape[0], router.shape[-1]
+    logits = (x @ router).to(torch.float32)  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = top_k_stable(probs, top_k)  # (T, k)
+    if norm_topk:
+        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    A, dev = T * top_k, x.device
+    flat_e = expert_idx.reshape(A)  # assignment -> expert
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(sorted_e, torch.arange(E, device=dev), side="left")  # (E,)
+    pos = torch.empty_like(flat_e)
+    pos[order] = torch.arange(A, device=dev) - first[sorted_e]
+    return probs, gate_vals, expert_idx, pos, moe_capacity(T, top_k, E, capacity_factor)
+
+
+def _experts(x, wg, wu, wd, local_e, pos, kept, gate_vals, C: int) -> torch.Tensor:
+    """Dispatch the kept assignments of x (T, d) to the experts of wg, wu,
+    wd (local_e: each assignment's index among them), run them, and combine
+    each kept output weighted by its gate: y (T, d)."""
+    T, d = x.shape
+    top_k = gate_vals.shape[-1]
+    A, n_exp = T * top_k, wg.shape[0]
+    tok_of = torch.arange(A, device=x.device) // top_k  # assignment -> token
+    # an (n_exp, C + 1, d) buffer whose last slot takes every assignment not
+    # kept (JAX drops the write out of bounds; index_put would raise)
+    slot = local_e * (C + 1) + torch.where(kept, pos, C)
+    buf = x.new_zeros((n_exp * (C + 1), d))
+    buf[slot] = x[tok_of]
+    buf = shard_hint(buf.view(n_exp, C + 1, d)[:, :C], ("experts", None, None))
+
+    # the experts: (E, C, d) x (E, d, f) batched products
+    h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    out_e = shard_hint(torch.bmm(h, wd), ("experts", None, None))  # (E, C, d)
+
+    # combine: gather each kept assignment's output, weight by its gate
+    y_a = out_e[local_e, torch.clamp(pos, max=C - 1)]  # (A, d)
+    wts = gate_vals.reshape(A).to(x.dtype) * kept.to(x.dtype)
+    return (y_a * wts[:, None]).reshape(T, top_k, d).sum(dim=1)
+
+
+def _aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balance loss E * sum_e f_e * P_e (one_hot as a
+    comparison: F.one_hot reads the indices' range on the host)."""
+    E = probs.shape[-1]
+    first_choice = expert_idx[:, :1] == torch.arange(E, device=probs.device)
+    return E * torch.sum(first_choice.to(torch.float32).mean(dim=0) * probs.mean(dim=0))
+
+
 def moe_ffn(p, x: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
             norm_topk: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """x (T, d) -> (y (T, d), aux_loss scalar f32).
@@ -53,48 +113,70 @@ def moe_ffn(p, x: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
     and a decode step of one prompt may drop different assignments, as in
     JAX.
     """
-    T, d = x.shape
+    probs, gate_vals, expert_idx, pos, C = _route(x, p["router"], top_k, capacity_factor,
+                                                  norm_topk)
+    y = _experts(x, p["w_gate"], p["w_up"], p["w_down"], expert_idx.reshape(-1), pos, pos < C,
+                 gate_vals, C)
+    return y, _aux_loss(probs, expert_idx)
+
+
+def moe_ffn_sharded(p, x3: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
+                    norm_topk: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``shard_map`` MoE over ``current_mesh()`` (see the module
+    docstring). x3 is (B, T, d); returns (y (B, T, d), aux).
+
+    Per (data, model) shard: route MY tokens, keep only the assignments to
+    MY expert shard, compute them, then ONE psum over "model" combines the
+    per-expert-shard partial outputs. aux is computed from each shard's
+    tokens and averaged over the data shards (a psum over the batch axes
+    divided by their size). Forward only: with autograd recording and a
+    parameter that requires grad it raises NotImplementedError (ROADMAP
+    A.5 queues the backward). The shards run on threads of their own,
+    which start outside ``use_sharding_rules``: their hints are silent, as
+    JAX's shard_map body has none.
+    """
+    from ..launch.mesh import shard_map
+    from ..launch.sharding import P
+
+    mesh = current_mesh()
+    if mesh is None:
+        raise RuntimeError("moe_ffn_sharded needs use_sharding_rules(..., mesh=...)")
+    if torch.is_grad_enabled() and any(
+            p[k].requires_grad for k in ("router", "w_gate", "w_up", "w_down")):
+        raise NotImplementedError(
+            "moe_ffn_sharded is forward only: its backward is not ported (ROADMAP A.5); "
+            "run it under torch.no_grad()")
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
     E = p["router"].shape[-1]
-    logits = (x @ p["router"]).to(torch.float32)  # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = top_k_stable(probs, top_k)  # (T, k)
-    if norm_topk:
-        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    M = mesh.shape["model"]
+    if E % M:
+        raise ValueError(f"{E} experts do not split over a model axis of {M}")
+    E_loc = E // M
+    n_data = math.prod(mesh.shape[a] for a in batch_axes)
 
-    C = moe_capacity(T, top_k, E, capacity_factor)
-    A = T * top_k
-    dev = x.device
-    flat_e = expert_idx.reshape(A)  # assignment -> expert
-    tok_of = torch.arange(A, device=dev) // top_k  # assignment -> token
+    def body(comm, xb, router, wg, wu, wd):
+        B_loc, T, d = xb.shape
+        xf = xb.reshape(B_loc * T, d)
+        probs, gate_vals, expert_idx, pos, C = _route(xf, router, top_k, capacity_factor,
+                                                      norm_topk)
+        # keep only MY expert shard's assignments
+        flat_e = expert_idx.reshape(-1)
+        e0 = comm.axis_index("model") * E_loc
+        mine = (flat_e >= e0) & (flat_e < e0 + E_loc)
+        local_e = torch.clamp(flat_e - e0, 0, E_loc - 1)
+        y = _experts(xf, wg, wu, wd, local_e, pos, (pos < C) & mine, gate_vals, C)
+        y = comm.allreduce(y, axes="model", tag="model").wait()  # the ONLY traffic of y
+        # aux is the same on every model shard (same tokens, same router):
+        # reduce over the batch axes only (the mean over data shards)
+        aux = comm.allreduce(_aux_loss(probs, expert_idx), axes=batch_axes, tag="aux").wait()
+        aux = aux / n_data
+        return y.reshape(B_loc, T, d), aux
 
-    # rank each assignment within its expert (stable: earlier tokens first)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    first = torch.searchsorted(sorted_e, torch.arange(E, device=dev), side="left")  # (E,)
-    pos = torch.empty_like(flat_e)
-    pos[order] = torch.arange(A, device=dev) - first[sorted_e]
-    keep = pos < C
-
-    # dispatch: an (E, C + 1, d) buffer whose last slot takes every dropped
-    # assignment (JAX drops the write out of bounds; index_put would raise)
-    slot = flat_e * (C + 1) + torch.where(keep, pos, C)
-    buf = x.new_zeros((E * (C + 1), d))
-    buf[slot] = x[tok_of]
-    buf = buf.view(E, C + 1, d)[:, :C]
-
-    # the experts: (E, C, d) x (E, d, f) batched products
-    h = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
-    out_e = torch.bmm(h, p["w_down"])  # (E, C, d)
-
-    # combine: gather each kept assignment's output, weight by its gate
-    y_a = out_e[flat_e, torch.clamp(pos, max=C - 1)]  # (A, d)
-    wts = gate_vals.reshape(A).to(x.dtype) * keep.to(x.dtype)
-    y = (y_a * wts[:, None]).reshape(T, top_k, d).sum(dim=1)
-
-    # load-balance aux loss (Switch): E * sum_e f_e * P_e
-    # (one_hot as a comparison: F.one_hot reads the indices' range on the host)
-    first_choice = expert_idx[:, :1] == torch.arange(E, device=dev)
-    f_e = first_choice.to(torch.float32).mean(dim=0)
-    P_e = probs.mean(dim=0)
-    aux = E * torch.sum(f_e * P_e)
-    return y, aux
+    spec_x = P(batch_axes if len(batch_axes) > 1 else (batch_axes or (None,))[0], None, None)
+    fn = shard_map(
+        body, mesh,
+        in_specs=(spec_x, P(None, None), P("model", None, None), P("model", None, None),
+                  P("model", None, None)),
+        out_specs=(spec_x, P()),
+    )
+    return fn(x3, p["router"], p["w_gate"], p["w_up"], p["w_down"])

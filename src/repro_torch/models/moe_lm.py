@@ -3,9 +3,11 @@
 
 The attention stack is the dense family's; every layer's FFN is the
 capacity-bounded top-k MoE of ``moe.py``. The load-balance loss is summed
-over the layers and returned beside the logits. Decode reads and writes
-the cache as ``transformer.dense_lm_decode`` does (in place, after the
-layer loop).
+over the layers and returned beside the logits. Under
+``use_sharding_rules(resolver, mesh)`` with a mesh that passes JAX's test
+(``sharded_moe_applies``) the layer takes ``moe_ffn_sharded``, as JAX's
+does. Decode reads and writes the cache as ``transformer.dense_lm_decode``
+does (in place, after the layer loop).
 """
 from __future__ import annotations
 
@@ -13,8 +15,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from .attention import KVCache, attention, attn_params
-from .common import apply_norm, make_norm_params
-from .moe import moe_ffn, moe_params
+from .common import apply_norm, current_mesh, make_norm_params
+from .moe import moe_ffn, moe_ffn_sharded, moe_params
 from .transformer import (
     _stack_kv,
     check_remat,
@@ -25,7 +27,7 @@ from .transformer import (
     write_cache,
 )
 
-__all__ = ["moe_lm_layout", "moe_lm_forward", "moe_lm_decode"]
+__all__ = ["moe_lm_layout", "moe_lm_forward", "moe_lm_decode", "sharded_moe_applies"]
 
 
 def _moe_layer_params(cfg: ArchConfig) -> dict:
@@ -44,6 +46,18 @@ def moe_lm_layout(cfg: ArchConfig) -> dict:
     }
 
 
+def sharded_moe_applies(mesh, cfg: ArchConfig, batch: int) -> bool:
+    """JAX's rule for the sharded dispatch: a mesh with a "model" axis that
+    divides the expert count, and a batch that every present data axis
+    divides."""
+    return (
+        mesh is not None
+        and "model" in mesh.shape
+        and cfg.n_experts % mesh.shape["model"] == 0
+        and all(batch % mesh.shape[a] == 0 for a in ("pod", "data") if a in mesh.shape)
+    )
+
+
 def _moe_layer_apply(lp, x: torch.Tensor, cfg: ArchConfig, *, cache: KVCache | None = None,
                      cache_pos=None):
     h = apply_norm(x, lp["attn_norm"], cfg.norm)
@@ -51,6 +65,9 @@ def _moe_layer_apply(lp, x: torch.Tensor, cfg: ArchConfig, *, cache: KVCache | N
     x = x + a
     h = apply_norm(x, lp["mlp_norm"], cfg.norm)
     B, T, d = h.shape
+    if sharded_moe_applies(current_mesh(), cfg, B):
+        y3, aux = moe_ffn_sharded(lp["moe"], h, cfg.top_k, cfg.moe_capacity_factor)
+        return x + y3, new_kv, aux
     y, aux = moe_ffn(lp["moe"], h.reshape(B * T, d), cfg.top_k, cfg.moe_capacity_factor)
     return x + y.reshape(B, T, d), new_kv, aux
 

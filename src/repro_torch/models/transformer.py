@@ -31,7 +31,7 @@ from torch.utils.checkpoint import (
 
 from ..configs.base import ArchConfig
 from .attention import KVCache, attention, attn_params
-from .common import ParamSpec, apply_norm, make_norm_params
+from .common import ParamSpec, apply_norm, make_norm_params, shard_hint
 from .mlp import swiglu, swiglu_params
 
 __all__ = [
@@ -114,21 +114,21 @@ def remat_call(fn, remat, *args):
 
 
 def embed_params(cfg: ArchConfig) -> dict:
-    p = {"embedding": ParamSpec((cfg.vocab_size, cfg.d_model))}
+    p = {"embedding": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        p["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size))
+        p["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
     p["final_norm"] = make_norm_params(cfg.d_model, cfg.norm)
     return p
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return F.embedding(tokens.long(), params["embedding"])
+    return shard_hint(F.embedding(tokens.long(), params["embedding"]), ("batch", None, None))
 
 
 def unembed(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = apply_norm(x, params["final_norm"], cfg.norm)
     head = params["embedding"].t() if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    return shard_hint(x @ head, ("batch", None, "vocab"))
 
 
 def dense_layer_params(cfg: ArchConfig) -> dict:
@@ -147,7 +147,7 @@ def dense_layer_apply(lp, x: torch.Tensor, cfg: ArchConfig, *, cache: KVCache | 
     x = x + checkpoint_name(a, "attn_out")
     h = apply_norm(x, lp["mlp_norm"], cfg.norm)
     x = x + checkpoint_name(swiglu(lp["mlp"], h), "mlp_out")
-    return x, new_kv
+    return shard_hint(x, ("batch", None, None)), new_kv
 
 
 def dense_lm_layout(cfg: ArchConfig) -> dict:

@@ -48,15 +48,15 @@ def _mlstm_params(cfg: ArchConfig) -> dict:
     nh = cfg.ssm_heads_
     return {
         "norm": make_norm_params(d, cfg.norm),
-        "w_in": ParamSpec((d, 2 * din)),       # [x_m | z gate]
-        "wq": ParamSpec((din, din)),
-        "wk": ParamSpec((din, din)),
-        "wv": ParamSpec((din, din)),
-        "w_ig": ParamSpec((din, nh), init="zeros"),
-        "b_ig": ParamSpec((nh,), init="zeros"),
-        "w_fg": ParamSpec((din, nh), init="zeros"),
-        "b_fg": ParamSpec((nh,), init="ones", scale=4.0),  # decay ~ 1 at init
-        "w_out": ParamSpec((din, d)),
+        "w_in": ParamSpec((d, 2 * din), ("embed", "mlp")),  # [x_m | z gate]
+        "wq": ParamSpec((din, din), ("mlp", "heads_flat")),
+        "wk": ParamSpec((din, din), ("mlp", "heads_flat")),
+        "wv": ParamSpec((din, din), ("mlp", "heads_flat")),
+        "w_ig": ParamSpec((din, nh), ("mlp", None), init="zeros"),
+        "b_ig": ParamSpec((nh,), (None,), init="zeros"),
+        "w_fg": ParamSpec((din, nh), ("mlp", None), init="zeros"),
+        "b_fg": ParamSpec((nh,), (None,), init="ones", scale=4.0),  # decay ~ 1 at init
+        "w_out": ParamSpec((din, d), ("mlp", "embed")),
     }
 
 
@@ -66,10 +66,10 @@ def _slstm_params(cfg: ArchConfig) -> dict:
     dh = d // nh
     return {
         "norm": make_norm_params(d, cfg.norm),
-        "w_gates": ParamSpec((d, 4 * d)),          # z i f o inputs
-        "r_gates": ParamSpec((nh, dh, 4 * dh), scale=0.5),
-        "b_gates": ParamSpec((4 * d,), init="zeros"),
-        "w_out": ParamSpec((d, d)),
+        "w_gates": ParamSpec((d, 4 * d), ("embed", "mlp")),  # z i f o inputs
+        "r_gates": ParamSpec((nh, dh, 4 * dh), (None, None, None), scale=0.5),
+        "b_gates": ParamSpec((4 * d,), ("mlp",), init="zeros"),
+        "w_out": ParamSpec((d, d), ("embed", "embed")),
     }
 
 

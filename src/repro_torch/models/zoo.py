@@ -6,6 +6,8 @@
     logits, cache = api.prefill(params, batch)
     cache = api.init_cache(batch_size, max_seq)   # device=None: CUDA
     logits, cache = api.decode(params, token, cache, pos)
+    abstract = api.abstract_params()        # a ParamTree on "meta": no storage
+    specs = api.input_specs(shape)          # meta stand-ins of every input
 
 ``batch`` holds "tokens" plus the family's extras, in the model's dtype:
 encdec "frames" (B, enc_seq, d), the stub audio frontend's output; vlm
@@ -24,7 +26,7 @@ from typing import Any, Dict
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from ..kernels.common import resolve_device
 from . import encdec as _encdec
 from . import mamba as _mamba
@@ -33,7 +35,7 @@ from . import transformer as _dense
 from . import vlm as _vlm
 from . import xlstm as _xlstm
 from .attention import KVCache, init_kv_cache
-from .common import DTYPES, ParamTree, count_params
+from .common import DTYPES, ParamTree, abstract, count_params, logical_axes_tree
 
 __all__ = ["ModelApi", "build_model", "make_generator"]
 
@@ -63,6 +65,40 @@ class ModelApi:
     def empty_params(self, device=None) -> ParamTree:
         """Uninitialised parameters of this layout (for the converter)."""
         return ParamTree(self.layout, dtype=self.dtype, device=resolve_device(device))
+
+    def abstract_params(self):
+        """The parameters as a ``ParamTree`` on the ``meta`` device, in the
+        model's dtype: ``init_params``'s tree without storage."""
+        return abstract(self.layout, self.dtype)
+
+    def param_logical_axes(self):
+        """The logical axis names of every leaf, in the layout's tree."""
+        return logical_axes_tree(self.layout)
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """``meta`` stand-ins for every model input of this shape, as JAX's
+        ShapeDtypeStructs: train and prefill take "tokens" (B, T) (train
+        also "labels"), plus the family's "frames" or "img_feats" in the
+        model's dtype; decode takes "token" (B, 1), the cache of a
+        T-position context (``init_cache(B, T, device="meta")``) and "pos".
+        Token ids are int32, as in JAX; "pos" is a 0-d int32 here, where
+        ``decode`` takes a Python int."""
+        cfg = self.cfg
+        B, T = shape.global_batch, shape.seq_len
+
+        def meta(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            specs = {"tokens": meta(B, T)}
+            if shape.kind == "train":
+                specs["labels"] = meta(B, T)
+            if cfg.family == "encdec":
+                specs["frames"] = meta(B, cfg.enc_seq, cfg.d_model, dtype=self.dtype)
+            if cfg.family == "vlm":
+                specs["img_feats"] = meta(B, cfg.n_img_tokens, cfg.d_model, dtype=self.dtype)
+            return specs
+        return {"token": meta(B, 1), "cache": self.init_cache(B, T, device="meta"), "pos": meta()}
 
     def _extras(self, batch: dict) -> tuple:
         """The family's inputs beside the tokens (JAX's ``_batch_extras``)."""

@@ -10,7 +10,8 @@
 
 The step updates the parameters and the optimizer state in place and
 returns a new ``TrainState`` that holds them; no scalar leaves the
-device. ``abstract_train_state`` (the JAX dry-run) has no counterpart yet.
+device. ``abstract_train_state`` is the same state on the ``meta`` device
+(the dry-run's; no storage).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from ..models.zoo import ModelApi
 from .loss import next_token_loss
 from .optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update
 
-__all__ = ["TrainState", "TrainConfig", "make_train_step", "init_train_state", "batch_to_device"]
+__all__ = ["TrainState", "TrainConfig", "make_train_step", "init_train_state",
+           "abstract_train_state", "batch_to_device"]
 
 
 @dataclass(frozen=True)
@@ -48,6 +50,15 @@ def init_train_state(api: ModelApi, generator: torch.Generator) -> TrainState:
     params = api.init_params(generator)
     return TrainState(params=params, opt=adamw_init(dict(params.named_parameters())),
                       step=torch.zeros((), dtype=torch.int32, device=generator.device))
+
+
+def abstract_train_state(api: ModelApi) -> TrainState:
+    """``init_train_state``'s state on the ``meta`` device: the parameters
+    in the model's dtype, the AdamW moments m and v in f32, as the
+    optimizer keeps them, and the 0-d step counters; no allocation."""
+    params = api.abstract_params()
+    return TrainState(params=params, opt=adamw_init(dict(params.named_parameters())),
+                      step=torch.zeros((), dtype=torch.int32, device="meta"))
 
 
 def batch_to_device(batch: dict, device, dtype: torch.dtype | None = None) -> dict:

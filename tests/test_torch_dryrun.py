@@ -1,0 +1,116 @@
+"""The port's dry-run (``python -m repro_torch.launch.dryrun``) against the
+JAX package on the CPU: the whisper-tiny train_4k cell's program, mesh,
+vocabulary fallback and analytic figures (JAX's functions, equal); the
+long_500k skip of a full-attention config; the CLI's record file; the
+whole 10 x 4 x 2 sweep classified as JAX's dry-run classifies it (ok, or
+the quadratic long_500k skip); and ``argument_bytes_per_device`` equal to
+the sum of the blocks of JAX's own shardings on ``AbstractMesh``
+(``NamedSharding.shard_shape``), built as JAX's dry-run builds its
+``in_shardings``. Everything runs on the meta device: no allocation.
+"""
+import json
+import math
+
+import jax
+import jax.numpy as jnp
+import pytest
+from jax.sharding import AbstractMesh
+
+import repro.configs as jconfigs
+import repro.launch.analytic as jan
+import repro.launch.sharding as jsh
+from repro.models import build_model as jbuild_model
+from repro.train.train_step import abstract_train_state as jabstract_train_state
+from repro_torch.launch import dryrun
+
+
+def test_run_cell_whisper_train():
+    rec = dryrun.run_cell("whisper-tiny", "train_4k", False, verbose=False)
+    assert rec["status"] == "ok" and rec["program"] == "train_step" and rec["mesh"] == "16x16"
+    # whisper's vocabulary (51865) cannot split 16 ways: logged
+    assert any(f["axis"] == "vocab" for f in rec["sharding_fallbacks"])
+    jcfg, jshape = jconfigs.get_config("whisper-tiny"), jconfigs.SHAPES["train_4k"]
+    assert rec["analytic"] == {
+        "model_flops_6nd": jan.model_flops_simple(jcfg, jshape),
+        "detailed_flops": jan.analytic_flops(jcfg, jshape),
+        "hbm_bytes": jan.analytic_hbm_bytes(jcfg, jshape),
+        "params": jan.param_count(jcfg),
+    }
+    terms = rec["roofline_analytic"]
+    assert terms["collective_s"] == 0.0 and terms["collective_counted"] is False
+    assert terms["bound_s"] == max(terms["compute_s"], terms["memory_s"]) > 0
+    for key in ("compile_s", "hlo", "collectives", "roofline_hlo", "model_vs_hlo_flops"):
+        assert key not in rec  # JAX's lowering half: no counterpart, not zeros
+
+
+def test_long500k_skip_reason():
+    rec = dryrun.run_cell("qwen3-8b", "long_500k", False, verbose=False)
+    assert rec["status"] == "skipped" and "quadratic" in rec["reason"]
+
+
+def test_cli_writes_the_record(tmp_path, capsys):
+    rc = dryrun.main(["--arch", "whisper-tiny", "--shape", "train_4k", "--mesh", "single",
+                      "--out", str(tmp_path)])
+    assert rc == 0
+    rec = json.load(open(tmp_path / "whisper-tiny_train_4k_single.json"))
+    assert rec["status"] == "ok" and rec["program"] == "train_step"
+    assert rec["memory"]["argument_bytes_per_device"] > 0
+    assert "0 failures" in capsys.readouterr().out
+
+
+def test_sweep_classifies_every_cell_as_jax(tmp_path):
+    assert dryrun.main(["--out", str(tmp_path)]) == 0
+    recs = [json.load(open(p)) for p in sorted(tmp_path.glob("*.json"))]
+    assert len(recs) == 80
+    for rec in recs:
+        jcfg = jconfigs.get_config(rec["arch"])
+        skip = rec["shape"] == "long_500k" and not jcfg.subquadratic  # JAX's rule
+        assert rec["status"] == ("skipped" if skip else "ok"), rec["arch"]
+        if not skip:
+            assert rec["program"] == {"train": "train_step", "prefill": "prefill",
+                                      "decode": "serve_step"}[jconfigs.SHAPES[rec["shape"]].kind]
+
+
+def _jax_argument_bytes(arch, shape_name, multi, layout):
+    """What JAX's dry-run passes as arguments, as blocks of its shardings."""
+    mesh = (AbstractMesh((2, 16, 16), ("pod", "data", "model")) if multi
+            else AbstractMesh((16, 16), ("data", "model")))
+    rules = jsh.DEFAULT_RULES()
+    api = jbuild_model(jconfigs.get_config(arch))
+    shape = jconfigs.SHAPES[shape_name]
+    p_sh = jsh.param_shardings(api, mesh, rules)
+    specs = api.input_specs(shape)
+    sc = jsh.scalar_sharding(mesh)
+    if shape.kind == "train":
+        state = jabstract_train_state(api)
+        pairs = [(state.params, p_sh), (state.opt.m, p_sh), (state.opt.v, p_sh),
+                 ([state.opt.step, state.opt.prev_norm, state.step], [sc, sc, sc]),
+                 (specs, jsh.batch_shardings(specs, mesh, rules))]
+    elif shape.kind == "prefill":
+        pairs = [(api.abstract_params(), p_sh), (specs, jsh.batch_shardings(specs, mesh, rules))]
+    else:
+        c_sh = jsh.cache_shardings(specs["cache"], shape, mesh, rules, layout=layout)
+        tok = jsh.batch_shardings({"token": specs["token"]}, mesh, rules)["token"]
+        pairs = [(api.abstract_params(), p_sh), (specs["token"], tok), (specs["cache"], c_sh),
+                 (jax.ShapeDtypeStruct((), jnp.int32), sc)]
+    total = 0
+    for tree, shardings in pairs:
+        leaves, shards = jax.tree.leaves(tree), jax.tree.leaves(shardings)
+        assert len(leaves) == len(shards)
+        total += sum(math.prod(s.shard_shape(x.shape)) * jnp.dtype(x.dtype).itemsize
+                     for x, s in zip(leaves, shards))
+    return total
+
+
+@pytest.mark.parametrize("arch,shape,multi,layout", [
+    ("whisper-tiny", "train_4k", False, "default"),
+    ("olmoe-1b-7b", "train_4k", True, "default"),
+    ("qwen2.5-14b", "prefill_32k", True, "default"),
+    ("llama-3.2-vision-11b", "decode_32k", False, "default"),
+    ("zamba2-2.7b", "long_500k", True, "seq_model"),
+    ("xlstm-1.3b", "decode_32k", False, "seq_model"),
+])
+def test_argument_bytes_equal_jax_shardings(arch, shape, multi, layout):
+    rec = dryrun.run_cell(arch, shape, multi, verbose=False, variant={"cache_layout": layout})
+    assert rec["memory"]["argument_bytes_per_device"] == _jax_argument_bytes(
+        arch, shape, multi, layout)
