@@ -230,8 +230,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    aux within 1e-6 (relative) of the mean over the data shards of the
    unsharded aux on each shard's tokens, one ``model`` all-reduce and one
    aux all-reduce a layer, both forwards' ms (one card: no speed-up). No
-   kernel of the port lies on these paths: the phase fails if one
-   launches.
+   kernel of the port lies on (a)-(d): the phase fails if one launches.
+   (e) the sharded MoE's backward on that mesh: every parameter's
+   gradient of the whole batch's nll + 0.01 x aux within 1e-5 per tensor
+   of the unsharded loss's (aux there the mean over the data shards of
+   each shard's rows' aux), the backward's all-reduces by tag (grad_x,
+   grad_router, 3 grad_experts a layer), both backwards' ms (no gate),
+   and three fused-optimizer remat steps under the mesh: losses finite and
+   falling, fused_adam once a tensor a step. (f) the traced census
+   against the card: ``launch.roofline.analyze_program`` over the dry
+   run's internlm2-1.8b train step at 8 x 512 on meta, then the same step
+   on the card under ``FlopCounterMode``: FLOPs equal, the growth of the
+   allocator's requested-bytes peak 0 to PEAK_TOL above the traced peak
+   of live storages; the step's ms against the traced bound (no gate);
+   one traced cell of each program kind on the 16 x 16 meta mesh (olmoe
+   train_4k with the sharded MoE at 2 layers: 9 all-reduces a layer),
+   with trace_s.
 
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -325,6 +339,16 @@ VLM_REL = 1e-5
 # the VLM phase 8's 512. Every cross gate 0.5: at its zero init a cross
 # layer adds nothing, and a wrong cross-attention would pass
 WHISPER_PROMPT, VLM_GATE = 64, 0.5
+# phase 12e: the sharded MoE's gradients against the unsharded loss's,
+# ||d|| / ||ref|| per tensor (f32, TF32 off; 12d's forward gate), and the
+# train step's load-balance weight (TrainConfig.aux_weight)
+GRAD_ROW, MOE_AUX_WEIGHT = 1e-5, 0.01
+# phase 12f: the card's requested-bytes peak may exceed the traced peak of
+# live storages by cuBLAS/cuBLASLt workspace on a handle's first GEMM and
+# kernels' scratch (reduction staging, the embedding backward's sort),
+# never fall below it: the same aten ops allocate the same storages
+PEAK_TOL = 64 * 2**20
+OLMOE_TRACED_GROUPS = 2  # layers of the traced sharded olmoe cell (of 16)
 BASELINE_BAND = 2                  # pcg/chronopoulos vs pipecg iterations (tests/test_solvers.py)
 REPLACES = {
     "spmv_dia": "src/repro/kernels/spmv_dia/kernel.py:37",
@@ -2840,7 +2864,7 @@ def main() -> None:
     for arch in list_configs():
         for shape_name in SHAPES:
             for multi in (False, True):
-                r = dryrun.run_cell(arch, shape_name, multi, verbose=False)
+                r = dryrun.run_cell(arch, shape_name, multi, trace=False, verbose=False)
                 tag = f"{arch}_{shape_name}_{'multi' if multi else 'single'}"
                 if r["status"] == "skipped":
                     if shape_name != "long_500k" or "quadratic" not in r["reason"]:
@@ -3002,14 +3026,192 @@ def main() -> None:
     if counts_m != {"allreduce": 2 * cfg_m.n_layers, "allreduce.model": cfg_m.n_layers,
                     "allreduce.aux": cfg_m.n_layers}:
         fail(f"sharded MoE counted {counts_m}: not one model and one aux all-reduce a layer")
-    del p_m, ref_m, got_m
+    del ref_m, got_m
     release()
     launched = {k_: w.launches for k_, w in wrappers.items() if w.launches}
     if launched:
         fail(f"the dry-run tools launched kernels of the port, where no path calls one: "
              f"{launched}")
+    log("12a-12d launched no kernel of the port")
+
+    # (e) the sharded MoE's backward on the card: 12d's model and tokens, every
+    # gradient of the whole batch's nll + 0.01 x aux against the unsharded loss
+    # (aux there the mean over the data shards of each shard's rows' aux)
+    from repro_torch.launch.roofline import analyze_program, roofline_terms
+
+    def moe_mesh():
+        return Mesh(np.array([dev] * 8, dtype=object).reshape(2, 4), ("data", "model"))
+
+    named_m = list(p_m.parameters())
+    names_m = [k_ for k_, _ in p_m.named_parameters()]
+    L_m = cfg_m.n_layers
+
+    def unsharded_loss(shard_aux=True):
+        logits_, aux_ = api_m.forward(p_m, {"tokens": toks_m})
+        if shard_aux:
+            aux_ = sum(api_m.forward(p_m, {"tokens": toks_m[2 * s:2 * s + 2]})[1]
+                       for s in range(2)) / 2
+        return next_token_loss(logits_, toks_m) + MOE_AUX_WEIGHT * aux_
+
+    def sharded_loss(mesh_):
+        with use_sharding_rules(make_resolver(mesh_, DEFAULT_RULES()), mesh_):
+            logits_, aux_ = api_m.forward(p_m, {"tokens": toks_m})
+        return next_token_loss(logits_, toks_m) + MOE_AUX_WEIGHT * aux_
+
+    def backward_ms(loss_fn, reps=3):
+        """Median ms of ``reps`` backwards (CUDA events around autograd.grad alone)."""
+        out = []
+        for _ in range(reps):
+            loss_ = loss_fn()
+            sync()
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            torch.autograd.grad(loss_, named_m)
+            ev[1].record()
+            ev[1].synchronize()
+            out.append(ev[0].elapsed_time(ev[1]))
+        return statistics.median(out)
+
+    for w in wrappers.values():
+        w.launches = 0
+    g_ref = torch.autograd.grad(unsharded_loss(), named_m)
+    mesh_e = moe_mesh()
+    g_sh = torch.autograd.grad(sharded_loss(mesh_e), named_m)
+    counts_e = dict(mesh_e.counts)
+    grad_err = {}
+    for k_, g_, r_ in zip(names_m, g_sh, g_ref):
+        r64 = r_.double()
+        grad_err[k_] = float((g_.double() - r64).norm() / r64.norm().clamp_min(1e-30))
+    worst = max(grad_err, key=grad_err.get)
+    want_e = {"allreduce": 7 * L_m, "allreduce.model": L_m, "allreduce.aux": L_m,
+              "allreduce.grad_x": L_m, "allreduce.grad_router": L_m,
+              "allreduce.grad_experts": 3 * L_m}
+    del g_ref, g_sh
+    bwd_unsharded_ms = backward_ms(lambda: unsharded_loss(shard_aux=False))
+    bwd_sharded_ms = backward_ms(lambda: sharded_loss(moe_mesh()))
+    release()
+    # three fused-optimizer steps under the mesh, on one batch, with remat: the
+    # recompute runs on the autograd engine's device thread, and must take the
+    # sharded path again
+    state_e = init_train_state(api_m, make_generator(3, dev))
+    n_tensors_e = len(list(state_e.params.parameters()))
+    step_e = make_train_step(api_m, TrainConfig(
+        optimizer=AdamWConfig(lr=FAM_LR, clip_norm=1.0, apply_fused=True), remat=True))
+    mesh_t = moe_mesh()
+    losses_e = []
+    with use_sharding_rules(make_resolver(mesh_t, DEFAULT_RULES()), mesh_t):
+        for _ in range(3):
+            state_e, met_e = step_e(state_e, {"tokens": toks_m})
+            losses_e.append(met_e["loss"])
+    losses_e = torch.stack(losses_e).tolist()
+    launched_e = {k_: w.launches for k_, w in wrappers.items() if w.launches}
+    per_step_e = launched_e.get("fused_adam", 0) / 3
+    dry["sharded_moe_backward"] = {
+        "grad_rel_err": grad_err, "worst": worst, "gate": GRAD_ROW, "counts": counts_e,
+        "backward_ms_unsharded": bwd_unsharded_ms, "backward_ms_sharded": bwd_sharded_ms,
+        "train_losses": losses_e, "fused_adam_launches_per_step": per_step_e,
+        "n_tensors": n_tensors_e, "train_step_counts": dict(mesh_t.counts)}
+    log(f"12e. ({card}) sharded MoE backward, 2-layer olmoe-1b-7b at full width in f32, (4, 128) "
+        f"on (data 2, model 4): {len(grad_err)} gradients within {grad_err[worst]:.3e} per tensor "
+        f"({worst}) of the unsharded loss's (gate {GRAD_ROW:g}); collectives {counts_e}; backward "
+        f"{bwd_unsharded_ms:.3f} ms unsharded (whole-batch aux), {bwd_sharded_ms:.3f} ms sharded "
+        f"(no gate); 3 fused remat steps under the mesh: losses {losses_e}, fused_adam "
+        f"{per_step_e:g} launches a step for {n_tensors_e} tensors")
+    if not grad_err[worst] <= GRAD_ROW:
+        fail(f"sharded MoE gradient {worst} lies {grad_err[worst]:.3e} from the unsharded one")
+    if counts_e != want_e:
+        fail(f"sharded MoE forward + backward counted {counts_e}, expected {want_e}")
+    if not all(math.isfinite(x) for x in losses_e) or not losses_e[-1] < losses_e[0]:
+        fail(f"sharded MoE training losses {losses_e}: not finite and falling")
+    if set(launched_e) != {"fused_adam"} or per_step_e != n_tensors_e:
+        fail(f"sharded MoE training launched {launched_e}: not fused_adam once a tensor a step "
+             f"({n_tensors_e})")
+    del p_m, state_e, step_e
+    release()
+
+    # (f) the traced census against the card: the dry run's internlm2-1.8b
+    # train step (AdamW unfused, clip 1, remat on) at phase 5's batch
+    for w in wrappers.values():
+        w.launches = 0
+    api_f = build_model(get_config("internlm2-1.8b"))
+    shape_f = ShapeConfig("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    census_f = analyze_program(dryrun._step_program(api_f, shape_f, {}))
+    trace_f_s = time.perf_counter() - t0
+    state_f = init_train_state(api_f, make_generator(0, dev))
+    step_f = make_train_step(api_f, dryrun.step_train_config())
+    gen_f = make_generator(1, dev)
+    batch_f = {k_: torch.randint(0, cfg12.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), device=dev,
+                                 generator=gen_f, dtype=torch.int32) for k_ in ("tokens", "labels")}
+    release()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    req0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    with FlopCounterMode(display=False) as fc:
+        state_f, met_f = step_f(state_f, batch_f)
+    sync()
+    grown_f = torch.cuda.memory_stats()["requested_bytes.all.peak"] - req0
+    card_flops = fc.get_total_flops()
+    loss_f = float(met_f["loss"])
+    step_f_ms = timed(lambda: step_f(state_f, batch_f), 1, 3)
+    terms_f = roofline_terms(census_f.flops, census_f.hbm_bytes, 0.0)
+    over = grown_f - census_f.peak_live_bytes
+    dry["traced_vs_card"] = {
+        "traced_flops": census_f.flops, "card_flops": card_flops,
+        "traced_hbm_bytes": census_f.hbm_bytes, "traced_peak_live_bytes": census_f.peak_live_bytes,
+        "card_requested_peak_growth": grown_f, "growth_minus_traced": over,
+        "peak_tol_bytes": PEAK_TOL, "n_ops": census_f.n_ops, "ops_by_class": census_f.ops_by_class,
+        "trace_s": trace_f_s, "loss": loss_f, "step_ms": step_f_ms, "roofline": terms_f,
+        "share_of_traced_bound": terms_f["bound_s"] * 1e3 / step_f_ms}
+    log(f"12f. ({card}) internlm2-1.8b train step at {TRAIN_BATCH} x {TRAIN_SEQ}, bf16 (the dry "
+        f"run's: AdamW unfused, clip 1, remat on): traced on meta in {trace_f_s:.2f} s, "
+        f"{census_f.n_ops:,} ops; FLOPs traced {census_f.flops:,.0f}, card FlopCounterMode "
+        f"{card_flops:,}; peak live traced {census_f.peak_live_bytes:,} B, card requested-peak "
+        f"growth {grown_f:,} B ({over:+,} B; tolerance 0 to {PEAK_TOL:,}); loss {loss_f:.4f}; "
+        f"step {step_f_ms:.3f} ms against the traced bound {terms_f['bound_s'] * 1e3:.3f} ms "
+        f"({terms_f['dominant']}; compute {terms_f['compute_s'] * 1e3:.3f} ms, memory "
+        f"{terms_f['memory_s'] * 1e3:.3f} ms of {census_f.hbm_bytes:,.0f} B): share "
+        f"{dry['traced_vs_card']['share_of_traced_bound']:.3f} (no gate)")
+    if card_flops != census_f.flops:
+        fail(f"traced FLOPs {census_f.flops:,} != the card's FlopCounterMode {card_flops:,}")
+    if not 0 <= over <= PEAK_TOL:
+        fail(f"the card's requested peak grew {grown_f:,} B, the traced peak is "
+             f"{census_f.peak_live_bytes:,} B: {over:+,} B, outside 0 to {PEAK_TOL:,}")
+    if not math.isfinite(loss_f):
+        fail(f"the traced step's loss on the card is {loss_f}")
+    del state_f, step_f, batch_f, met_f
+    release()
+    cells_f = {}
+    # the sharded olmoe cell at 2 of its 16 layer groups: 256 shard threads a
+    # region on meta take ~13 s a layer on the card's host
+    for arch, shape_name, variant in (("olmoe-1b-7b", "train_4k",
+                                       {"moe_shard_map": True, "groups": OLMOE_TRACED_GROUPS}),
+                                      ("qwen3-8b", "prefill_32k", None),
+                                      ("internlm2-1.8b", "decode_32k", None)):
+        r = dryrun.run_cell(arch, shape_name, False, verbose=False, variant=variant)
+        if r["status"] != "ok":
+            fail(f"traced dry-run {arch} {shape_name}: {r}")
+        cells_f[f"{arch}_{shape_name}"] = {
+            k_: r[k_] for k_ in ("program", "variant", "trace_s", "memory", "traced",
+                                 "collectives", "roofline_traced", "model_vs_traced_flops")}
+        tr_ = r["traced"]
+        log(f"    traced cell (16 x 16 meta mesh) {arch} {shape_name} {r['program']}"
+            f"{f' {variant}' if variant else ''}: trace_s {r['trace_s']:.2f}, {tr_['n_ops']:,} "
+            f"ops; per chip {tr_['flops_per_chip']:,.0f} FLOPs, {tr_['hbm_bytes_per_chip']:,.0f} "
+            f"HBM B, {tr_['wire_bytes_per_chip']:,.0f} wire B; peak "
+            f"{r['memory']['peak_bytes_per_device'] / 2**30:.3f} GiB a device; collectives "
+            f"{r['collectives']['by_kind_count']}; traced bound "
+            f"{r['roofline_traced']['bound_s'] * 1e3:.3f} ms ({r['roofline_traced']['dominant']}); "
+            f"6ND / traced FLOPs {r['model_vs_traced_flops']:.4f}")
+    n_moe = cells_f["olmoe-1b-7b_train_4k"]["collectives"]["by_kind_count"].get("allreduce", 0)
+    if n_moe != 9 * OLMOE_TRACED_GROUPS:
+        fail(f"the traced olmoe moe_shard_map cell counted {n_moe} all-reduces, not 9 a layer")
+    dry["traced_cells"] = cells_f
+    launched = {k_: w.launches for k_, w in wrappers.items() if w.launches}
+    if launched:
+        fail(f"12f launched kernels of the port (its step runs the plain optimizer): {launched}")
     dry["phase_s"] = time.perf_counter() - t12
-    log(f"the dry-run tools launched no kernel of the port; phase 12 took {dry['phase_s']:.1f} s")
+    log(f"phase 12 took {dry['phase_s']:.1f} s")
     record["dry_run"] = dry
 
     # ------------------------------------------------------------------ 6
@@ -3054,7 +3256,9 @@ def main() -> None:
         "fused_adam_bf16": {f"{arch} (10)": fam_train[arch]["fused_adam_launches_per_step"]
                             for arch in ("xlstm-1.3b", "zamba2-2.7b", "whisper-tiny")},
         "fused_adam": {"reduced llama-3.2-vision-11b, f32 (10)": fam_train[
-            "llama-3.2-vision-11b-reduced-f32"]["fused_adam_launches_per_step"]}}
+            "llama-3.2-vision-11b-reduced-f32"]["fused_adam_launches_per_step"],
+                       "2-layer olmoe-1b-7b, f32, sharded MoE on (data 2, model 4) (12e)":
+                           dry["sharded_moe_backward"]["fused_adam_launches_per_step"]}}
     kernels = []
     for kname, (path, run) in paths.items():
         base = kname.removesuffix("_bf16").removesuffix("_batched").removesuffix("_bf16band")

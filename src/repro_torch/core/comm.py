@@ -39,8 +39,11 @@ rank (SPMD); a rank that posts another kind there raises.
   re-raises the first rank's error in the caller.
 
 Counters: ``counts`` (collectives by kind, and by ``kind.tag``: the solver
-loops tag the reductions of their loop body "loop"), and per rank the
-seconds spent blocked in waits, by kind (``wait_s``).
+loops tag the reductions of their loop body "loop"), ``coll_bytes`` (each
+collective's result bytes a rank, by kind and group size: what a wire-byte
+model reads), and per rank the seconds spent blocked in waits, by kind
+(``wait_s``). On ``meta`` tensors a collective stages nothing and returns
+the rank's own part: shapes only, for a program that is counted, not run.
 """
 from __future__ import annotations
 
@@ -73,8 +76,11 @@ class _Part:
     __slots__ = ("tensor", "event")
 
     def __init__(self, t: torch.Tensor, pin: bool):
-        t = t.detach()
         self.event = None
+        if t.is_meta:  # shapes only: nothing to stage or protect (and no op to count)
+            self.tensor = t
+            return
+        t = t.detach()
         if t.device.type == "cuda":
             host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             host.copy_(t, non_blocking=True)
@@ -94,11 +100,12 @@ class _Part:
 
 
 class _Slot:
-    __slots__ = ("kind", "parts", "waited", "lock", "result")
+    __slots__ = ("kind", "parts", "posted", "waited", "lock", "result")
 
     def __init__(self, kind: str, n: int):
         self.kind = kind
         self.parts: List[Optional[_Part]] = [None] * n
+        self.posted = 0
         self.waited = 0
         self.lock = threading.Lock()
         self.result = None
@@ -126,6 +133,7 @@ class Communicator:
         self.n = mesh.n_shards
         self.timeout = float(timeout)
         self.counts: Counter = Counter()
+        self.coll_bytes: Counter = Counter()  # (kind, group size) -> result bytes a rank
         self.wait_s = [defaultdict(float) for _ in range(self.n)]
         self._cv = threading.Condition()
         self._slots: dict = {}
@@ -133,6 +141,10 @@ class Communicator:
         self._error: Optional[BaseException] = None
         # with a card in the mesh, every staged tensor is pinned host memory
         self.pin = any(d.type == "cuda" for d in mesh.devices)
+        # on meta nothing runs in parallel: the ranks take turns, handing over
+        # in each wait, rather than trade the interpreter lock at every op
+        self.turn = (threading.Lock() if all(d.type == "meta" for d in mesh.devices)
+                     else None)
 
     def rank(self, r: int) -> "ShardComm":
         return ShardComm(self, r)
@@ -146,7 +158,11 @@ class Communicator:
 
     # -- the rendezvous ----------------------------------------------------
 
-    def _post(self, rank: int, kind: str, tensor, count: int = 1, tag: str = "") -> int:
+    def _post(self, rank: int, kind: str, tensor, count: int = 1, tag: str = "",
+              payload=()) -> int:
+        """Post rank's part of its next collective; rank 0 also counts it
+        (``count`` collectives) and adds ``payload``, ((group size, result
+        bytes a rank), ...), to ``coll_bytes``."""
         part = _NOTHING if tensor is None else _Part(tensor, self.pin)
         with self._cv:
             if self._error is not None:
@@ -163,31 +179,41 @@ class Communicator:
                 self._cv.notify_all()
                 raise err
             slot.parts[rank] = part
+            slot.posted += 1
             if rank == 0:
                 self.counts[kind] += count
                 if tag:
                     self.counts[f"{kind}.{tag}"] += count
-            self._cv.notify_all()
+                for group, nbytes in payload:
+                    self.coll_bytes[(kind, group)] += nbytes
+            if slot.posted == self.n:  # waiters need every part: wake them once
+                self._cv.notify_all()
         return seq
 
     def _wait(self, rank: int, seq: int, finish: Callable):
         t0 = time.perf_counter()
         deadline = t0 + self.timeout
-        with self._cv:
-            slot = self._slots[seq]
-            while not all(p is not None for p in slot.parts):
-                if self._error is not None:
-                    raise MeshAborted(f"rank {rank}: a peer failed") from self._error
-                left = deadline - time.perf_counter()
-                if left <= 0:
-                    err = TimeoutError(
-                        f"rank {rank} waited {self.timeout:.0f} s for its peers at collective "
-                        f"{seq} ({slot.kind}); posted: "
-                        f"{[r for r, p in enumerate(slot.parts) if p is not None]}")
-                    self._error = err
-                    self._cv.notify_all()
-                    raise err
-                self._cv.wait(left)
+        if self.turn is not None:
+            self.turn.release()
+        try:
+            with self._cv:
+                slot = self._slots[seq]
+                while slot.posted < self.n:
+                    if self._error is not None:
+                        raise MeshAborted(f"rank {rank}: a peer failed") from self._error
+                    left = deadline - time.perf_counter()
+                    if left <= 0:
+                        err = TimeoutError(
+                            f"rank {rank} waited {self.timeout:.0f} s for its peers at "
+                            f"collective {seq} ({slot.kind}); posted: "
+                            f"{[r for r, p in enumerate(slot.parts) if p is not None]}")
+                        self._error = err
+                        self._cv.notify_all()
+                        raise err
+                    self._cv.wait(left)
+        finally:
+            if self.turn is not None:
+                self.turn.acquire()
         out = finish(slot)
         with self._cv:
             slot.waited += 1
@@ -239,10 +265,17 @@ class ShardComm:
         if hierarchical and axes is not None:
             raise ValueError("an all-reduce is hierarchical or over named axes, not both")
         group = None if axes is None else self.comm.mesh.group(self.rank, axes)
-        seq = self.comm._post(self.rank, "allreduce", t, 2 if hierarchical else 1, tag)
+        nbytes = t.numel() * t.element_size()
+        if hierarchical:
+            payload = ((self.sub, nbytes), (self.n_shards // self.sub, nbytes))
+        else:
+            payload = ((self.n_shards if group is None else len(group), nbytes),)
+        seq = self.comm._post(self.rank, "allreduce", t, 2 if hierarchical else 1, tag, payload)
         sub, dev = self.sub, self.device
 
         def finish(slot):
+            if t.is_meta:  # every group's sum has the shape of its parts
+                return slot.parts[self.rank].tensor
             with slot.lock:
                 if group is not None:  # one sum a group, in rank order
                     if slot.result is None:
@@ -266,7 +299,8 @@ class ShardComm:
     def allgather(self, t: torch.Tensor) -> Handle:
         """Post ``t``; the wait returns every rank's tensor, in rank order,
         on this rank's device (its own as it was posted)."""
-        seq = self.comm._post(self.rank, "allgather", t)
+        n, nbytes = self.n_shards, t.numel() * t.element_size()
+        seq = self.comm._post(self.rank, "allgather", t, payload=((n, n * nbytes),))
         rank, dev = self.rank, self.device
 
         def finish(slot):
@@ -281,7 +315,8 @@ class ShardComm:
         tensor on this rank's device, or None at the edge of the ring."""
         n, rank, dev = self.n_shards, self.rank, self.device
         receiver = 0 <= rank - d < n
-        seq = self.comm._post(rank, "shift", t if receiver else None)
+        seq = self.comm._post(rank, "shift", t if receiver else None,
+                              payload=((n, t.numel() * t.element_size()),))
         src = rank + d
 
         def finish(slot):
@@ -375,6 +410,8 @@ class SolverMesh:
         errors: List[Optional[BaseException]] = [None] * self.n_shards
 
         def body(rank: int) -> None:
+            if comm.turn is not None:
+                comm.turn.acquire()
             try:
                 dev = self.devices[rank]
                 if dev.type == "cuda":
@@ -383,6 +420,9 @@ class SolverMesh:
             except BaseException as e:  # noqa: BLE001 - handed to the caller below
                 errors[rank] = e
                 comm.abort(e)
+            finally:
+                if comm.turn is not None:
+                    comm.turn.release()
 
         threads = [threading.Thread(target=body, args=(r,), name=f"solver-shard-{r}", daemon=True)
                    for r in range(self.n_shards)]

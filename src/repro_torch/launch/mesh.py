@@ -16,12 +16,14 @@ device.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from collections import Counter, OrderedDict
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from ..core.comm import ShardComm, SolverMesh
 
@@ -36,9 +38,10 @@ class Mesh:
     """A grid of ``torch.device``s with one name per axis.
 
     ``shape`` is the ordered {name: size} mapping (JAX's ``Mesh.shape``),
-    ``devices`` the grid (a numpy object array), and ``counts`` the
+    ``devices`` the grid (a numpy object array), ``counts`` the
     collectives that :func:`shard_map` regions on this mesh ran, by kind
-    and tag (each collective once, however many shards join it).
+    and tag (each collective once, however many shards join it), and
+    ``coll_bytes`` their result bytes a shard, by kind and group size.
     """
 
     def __init__(self, devices, axis_names: Sequence[str]):
@@ -53,6 +56,7 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.shape = OrderedDict(zip(self.axis_names, grid.shape))
         self.counts: Counter = Counter()
+        self.coll_bytes: Counter = Counter()
 
     @property
     def size(self) -> int:
@@ -123,22 +127,35 @@ def shard_map(body: Callable, mesh: Mesh, in_specs: Sequence, out_specs: Sequenc
     names, concatenated in coordinate order on the first input's device,
     and along the axes it does not name taken from coordinate 0 (those
     shards hold equal values, as JAX's replication check assumes). The
-    region's collectives are added to ``mesh.counts``."""
+    region's collectives are added to ``mesh.counts`` and
+    ``mesh.coll_bytes``.
+
+    Each shard's thread runs under the caller's grad mode and the
+    caller's ``TorchDispatchMode``s (both are thread-local), as the
+    region would run inline: a forward region under ``torch.no_grad``
+    records no graph, and a census (``launch.roofline.analyze_program``)
+    counts every shard's ops."""
     names = mesh.axis_names
     solver = SolverMesh(list(mesh.devices.flat), axes=mesh.shape)
 
     def run(*args):
         if len(args) != len(in_specs):
             raise ValueError(f"{len(args)} inputs for {len(in_specs)} in_specs")
+        grad = torch.is_grad_enabled()
+        modes = _get_current_dispatch_mode_stack()
 
         def shard_body(sc: ShardComm):
-            coords = solver.coords(sc.rank)
-            blocks = [a[block_index(mesh, spec, coords, a.shape)].to(sc.device)
-                      for a, spec in zip(args, in_specs)]
-            return body(sc, *blocks)
+            with torch.set_grad_enabled(grad), contextlib.ExitStack() as stack:
+                for mode in modes:
+                    stack.enter_context(mode)
+                coords = solver.coords(sc.rank)
+                blocks = [a[block_index(mesh, spec, coords, a.shape)].to(sc.device)
+                          for a, spec in zip(args, in_specs)]
+                return body(sc, *blocks)
 
         results, comm = solver.run(shard_body)
         mesh.counts.update(comm.counts)
+        mesh.coll_bytes.update(comm.coll_bytes)
         home = args[0].device
         outs = []
         for i, spec in enumerate(out_specs):

@@ -13,7 +13,8 @@ as the JAX package's ``models/moe.py``.
   tokens and its E/M experts: it routes its tokens, keeps only the
   assignments to its own experts, runs them, and ONE ``psum`` over
   "model" adds the expert shards' partial outputs. The capacity is per
-  (data shard x expert). Forward only: its backward is not ported.
+  (data shard x expert). Under autograd its backward is a second
+  ``shard_map`` region, the transpose of the first.
 """
 from __future__ import annotations
 
@@ -120,6 +121,106 @@ def moe_ffn(p, x: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
     return y, _aux_loss(probs, expert_idx)
 
 
+class _ShardedDispatch:
+    """The per-shard bodies of ``moe_ffn_sharded`` over one mesh, and its
+    two ``shard_map`` regions: the forward, and the backward that
+    recomputes each shard's body and applies the transposes of the
+    forward's collectives (see ``moe_ffn_sharded``)."""
+
+    def __init__(self, mesh, n_experts: int, top_k: int, capacity_factor: float,
+                 norm_topk: bool):
+        from ..launch.mesh import shard_map
+        from ..launch.sharding import P
+
+        self.shard_map = shard_map
+        M = mesh.shape["model"]
+        if n_experts % M:
+            raise ValueError(f"{n_experts} experts do not split over a model axis of {M}")
+        self.mesh, self.M, self.E_loc = mesh, M, n_experts // M
+        self.top_k, self.capacity_factor, self.norm_topk = top_k, capacity_factor, norm_topk
+        self.batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+        self.n_data = math.prod(mesh.shape[a] for a in self.batch_axes)
+        b = self.batch_axes
+        self.spec_x = P(b if len(b) > 1 else (b or (None,))[0], None, None)
+        self.spec_w = (P(None, None), P("model", None, None), P("model", None, None),
+                       P("model", None, None))
+        self.spec_aux = P()
+
+    def local(self, comm, xb, router, wg, wu, wd):
+        """MY shard's part: route MY tokens, keep only the assignments to
+        MY expert shard and run them. Returns (y_part (B_loc, T, d), the
+        expert shard's share of y before the psum over "model"; aux_loc,
+        MY data shard's aux before the mean over the data shards)."""
+        B_loc, T, d = xb.shape
+        xf = xb.reshape(B_loc * T, d)
+        probs, gate_vals, expert_idx, pos, C = _route(xf, router, self.top_k,
+                                                      self.capacity_factor, self.norm_topk)
+        flat_e = expert_idx.reshape(-1)
+        e0 = comm.axis_index("model") * self.E_loc
+        mine = (flat_e >= e0) & (flat_e < e0 + self.E_loc)
+        local_e = torch.clamp(flat_e - e0, 0, self.E_loc - 1)
+        y = _experts(xf, wg, wu, wd, local_e, pos, (pos < C) & mine, gate_vals, C)
+        return y.reshape(B_loc, T, d), _aux_loss(probs, expert_idx)
+
+    def forward(self, x3, router, wg, wu, wd):
+        def body(comm, *blocks):
+            y, aux = self.local(comm, *blocks)
+            y = comm.allreduce(y, axes="model", tag="model").wait()  # the ONLY traffic of y
+            # aux is the same on every model shard (same tokens, same router):
+            # reduce over the batch axes only (the mean over data shards)
+            aux = comm.allreduce(aux, axes=self.batch_axes, tag="aux").wait()
+            return y, aux / self.n_data
+
+        fn = self.shard_map(body, self.mesh, in_specs=(self.spec_x, *self.spec_w),
+                            out_specs=(self.spec_x, self.spec_aux))
+        return fn(x3, router, wg, wu, wd)
+
+    def backward(self, x3, router, wg, wu, wd, dy, daux):
+        everything = self.mesh.axis_names
+
+        def body(comm, xb, r, g, u, dn, dyb, da):
+            leaves = [t.detach().requires_grad_() for t in (xb, r, g, u, dn)]
+            # grad mode is the thread's own; and this thread drives its own VJP:
+            # on a card the autograd engine's device thread would run it, and
+            # that thread is the one waiting in _ShardedMoE.backward for us
+            with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
+                y, aux = self.local(comm, *leaves)
+                # y = psum_model(y_part): its transpose hands dy to every
+                # model shard. aux = psum_data(aux_loc) / n_data, and aux_loc
+                # is replicated over "model": each model shard takes 1/M of
+                # its cotangent, which the sums over "model" below add back
+                gx, gr, gg, gu, gd = torch.autograd.grad(
+                    (y, aux), leaves, (dyb, da / (self.n_data * self.M)))
+            # the transposes of the in_specs: x is replicated over "model",
+            # the router over every axis, the experts over the batch axes
+            gx = comm.allreduce(gx, axes="model", tag="grad_x").wait()
+            gr = comm.allreduce(gr, axes=everything, tag="grad_router").wait()
+            gg, gu, gd = (comm.allreduce(t, axes=self.batch_axes, tag="grad_experts").wait()
+                          for t in (gg, gu, gd))
+            return gx, gr, gg, gu, gd
+
+        fn = self.shard_map(body, self.mesh,
+                            in_specs=(self.spec_x, *self.spec_w, self.spec_x, self.spec_aux),
+                            out_specs=(self.spec_x, *self.spec_w))
+        return fn(x3, router, wg, wu, wd, dy, daux)
+
+
+class _ShardedMoE(torch.autograd.Function):
+    """``moe_ffn_sharded`` under autograd: the forward region, and a
+    backward region that recomputes each shard's body from the saved
+    inputs (a remat of the region, not a saved routing)."""
+
+    @staticmethod
+    def forward(ctx, dispatch: _ShardedDispatch, x3, router, wg, wu, wd):
+        ctx.dispatch = dispatch
+        ctx.save_for_backward(x3, router, wg, wu, wd)
+        return dispatch.forward(x3, router, wg, wu, wd)
+
+    @staticmethod
+    def backward(ctx, dy, daux):
+        return (None, *ctx.dispatch.backward(*ctx.saved_tensors, dy, daux))
+
+
 def moe_ffn_sharded(p, x3: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
                     norm_topk: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """The ``shard_map`` MoE over ``current_mesh()`` (see the module
@@ -129,54 +230,21 @@ def moe_ffn_sharded(p, x3: torch.Tensor, top_k: int, capacity_factor: float = 1.
     MY expert shard, compute them, then ONE psum over "model" combines the
     per-expert-shard partial outputs. aux is computed from each shard's
     tokens and averaged over the data shards (a psum over the batch axes
-    divided by their size). Forward only: with autograd recording and a
-    parameter that requires grad it raises NotImplementedError (ROADMAP
-    A.5 queues the backward). The shards run on threads of their own,
+    divided by their size). The shards run on threads of their own,
     which start outside ``use_sharding_rules``: their hints are silent, as
     JAX's shard_map body has none.
-    """
-    from ..launch.mesh import shard_map
-    from ..launch.sharding import P
 
+    Under autograd the backward is a second region on the same mesh, the
+    transpose JAX's ``shard_map`` derives for these specs: each shard
+    recomputes its body with grad on, takes the vector-Jacobian product of
+    its (y part, aux part) with ``torch.autograd.grad``, then sums x's
+    gradient over "model" (``grad_x``), the router's over every axis
+    (``grad_router``) and each expert weight's over the batch axes
+    (``grad_experts``, three a layer). Top-k indices carry no gradient: it
+    flows through the gates and the router's probabilities, as in JAX.
+    """
     mesh = current_mesh()
     if mesh is None:
         raise RuntimeError("moe_ffn_sharded needs use_sharding_rules(..., mesh=...)")
-    if torch.is_grad_enabled() and any(
-            p[k].requires_grad for k in ("router", "w_gate", "w_up", "w_down")):
-        raise NotImplementedError(
-            "moe_ffn_sharded is forward only: its backward is not ported (ROADMAP A.5); "
-            "run it under torch.no_grad()")
-    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
-    E = p["router"].shape[-1]
-    M = mesh.shape["model"]
-    if E % M:
-        raise ValueError(f"{E} experts do not split over a model axis of {M}")
-    E_loc = E // M
-    n_data = math.prod(mesh.shape[a] for a in batch_axes)
-
-    def body(comm, xb, router, wg, wu, wd):
-        B_loc, T, d = xb.shape
-        xf = xb.reshape(B_loc * T, d)
-        probs, gate_vals, expert_idx, pos, C = _route(xf, router, top_k, capacity_factor,
-                                                      norm_topk)
-        # keep only MY expert shard's assignments
-        flat_e = expert_idx.reshape(-1)
-        e0 = comm.axis_index("model") * E_loc
-        mine = (flat_e >= e0) & (flat_e < e0 + E_loc)
-        local_e = torch.clamp(flat_e - e0, 0, E_loc - 1)
-        y = _experts(xf, wg, wu, wd, local_e, pos, (pos < C) & mine, gate_vals, C)
-        y = comm.allreduce(y, axes="model", tag="model").wait()  # the ONLY traffic of y
-        # aux is the same on every model shard (same tokens, same router):
-        # reduce over the batch axes only (the mean over data shards)
-        aux = comm.allreduce(_aux_loss(probs, expert_idx), axes=batch_axes, tag="aux").wait()
-        aux = aux / n_data
-        return y.reshape(B_loc, T, d), aux
-
-    spec_x = P(batch_axes if len(batch_axes) > 1 else (batch_axes or (None,))[0], None, None)
-    fn = shard_map(
-        body, mesh,
-        in_specs=(spec_x, P(None, None), P("model", None, None), P("model", None, None),
-                  P("model", None, None)),
-        out_specs=(spec_x, P()),
-    )
-    return fn(x3, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    dispatch = _ShardedDispatch(mesh, p["router"].shape[-1], top_k, capacity_factor, norm_topk)
+    return _ShardedMoE.apply(dispatch, x3, p["router"], p["w_gate"], p["w_up"], p["w_down"])

@@ -103,14 +103,19 @@ def remat_call(fn, remat, *args):
     """fn(*args), under ``torch.utils.checkpoint`` when ``remat``: True
     recomputes everything in the backward; "save_collectives" keeps the
     values tagged ``attn_out`` and ``mlp_out`` and recomputes the rest (a
-    region that tags none is recomputed whole, as in JAX)."""
+    region that tags none is recomputed whole, as in JAX). The recompute
+    runs in the forward's context: on a card's tensors the backward runs
+    on the autograd engine's own thread, where the sharding rules and mesh
+    (context variables) that chose the forward's path would be unset."""
     if not remat:
         return fn(*args)
     if remat == "save_collectives":
-        return checkpoint(_tagging(fn), *args, use_reentrant=False,
+        run = functools.partial(contextvars.copy_context().run, _tagging(fn))
+        return checkpoint(run, *args, use_reentrant=False,
                           context_fn=functools.partial(create_selective_checkpoint_contexts,
                                                        _save_tagged))
-    return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(functools.partial(contextvars.copy_context().run, fn), *args,
+                      use_reentrant=False)
 
 
 def embed_params(cfg: ArchConfig) -> dict:

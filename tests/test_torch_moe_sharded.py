@@ -12,7 +12,13 @@ each token's expert outputs added in another order. aux against the mean
 over the data shards of JAX's aux on each shard's rows, rtol 1e-6 (aux is
 a per-shard estimator, so it differs from the whole batch's). Also: one
 ``model`` all-reduce and one aux all-reduce per layer; the sharded path
-taken exactly when JAX's condition holds; the raise under autograd.
+taken exactly when JAX's condition holds.
+
+The backward: every parameter's gradient of the whole batch's nll plus
+0.01 x aux (the forward's mean over the data shards) against ``jax.grad``
+of the same loss in JAX, unsharded (aux there the mean of JAX's aux on each
+data shard's rows), within 1e-5 per tensor (||d|| / ||ref||, f32); the
+backward's all-reduces by tag; ``remat=True`` against no remat.
 """
 import dataclasses
 
@@ -27,14 +33,18 @@ import repro.models.moe as jmoe
 import repro.models.moe_lm as jmoe_lm
 from repro.models import build_model as jbuild_model
 from repro.models.common import use_sharding_rules as juse_sharding_rules
+from repro.train.loss import next_token_loss as jnext_token_loss
 from repro_torch import configs, convert
 from repro_torch.launch.mesh import Mesh, shard_map
 from repro_torch.launch.sharding import DEFAULT_RULES, P, make_resolver
 from repro_torch.models import build_model, moe_lm
 from repro_torch.models.common import use_sharding_rules
+from repro_torch.train.loss import next_token_loss
 
 ROW = 1e-5
 AUX_RTOL = 1e-6
+GRAD = 1e-5  # ||d|| / ||ref|| per parameter tensor, f32
+AUX_WEIGHT = 0.01
 
 
 def _host_mesh(data, model):
@@ -124,18 +134,6 @@ def test_sharded_path_taken_exactly_when_jax_condition_holds(monkeypatch):
     assert any(taken) and not all(taken)
 
 
-def test_sharded_forward_raises_under_autograd():
-    _, _, api, params = _models("olmoe-1b-7b")
-    mesh = _host_mesh(2, 4)
-    tokens = torch.zeros((4, 16), dtype=torch.int32)
-    with use_sharding_rules(make_resolver(mesh, DEFAULT_RULES()), mesh):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-            api.forward(params, {"tokens": tokens})
-        with torch.no_grad():
-            logits, _ = api.forward(params, {"tokens": tokens})
-    assert torch.isfinite(logits).all()
-
-
 def test_shard_map_slices_runs_and_assembles():
     mesh = _host_mesh(2, 4)
     x = torch.arange(4 * 3 * 8, dtype=torch.float32).reshape(4, 3, 8)
@@ -154,3 +152,80 @@ def test_shard_map_slices_runs_and_assembles():
     torch.testing.assert_close(y, x @ w, rtol=0, atol=0)
     assert float(rows) == 4.0
     assert mesh.counts == {"allreduce": 2, "allreduce.model": 1}
+
+
+def _tokens(cfg):
+    return np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+
+
+def _port_grads(api, params, tokens, mesh, remat=False):
+    named = dict(params.named_parameters())
+    with use_sharding_rules(make_resolver(mesh, DEFAULT_RULES()), mesh):
+        logits, aux = api.forward(params, {"tokens": torch.from_numpy(tokens)}, remat=remat)
+        loss = next_token_loss(logits, torch.from_numpy(tokens)) + AUX_WEIGHT * aux
+        grads = torch.autograd.grad(loss, list(named.values()))
+    return dict(zip(named, grads))
+
+
+def _jax_grads(japi, jparams, tokens, data, cfg):
+    """jax.grad of the whole batch's nll plus 0.01 x the mean over the data
+    shards of JAX's aux on each shard's rows, unsharded, as port tensors."""
+    b = tokens.shape[0] // data
+
+    def loss(p):
+        logits, _ = japi.forward(p, {"tokens": jnp.asarray(tokens)})
+        auxes = [japi.forward(p, {"tokens": jnp.asarray(tokens[s * b:(s + 1) * b])})[1]
+                 for s in range(data)]
+        return jnext_token_loss(logits, jnp.asarray(tokens)) + AUX_WEIGHT * sum(auxes) / data
+
+    g = jax.tree.map(np.asarray, jax.grad(loss)(jparams))
+    return dict(convert.lm_params_from_arrays(cfg, g, device="cpu").named_parameters())
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (1, 8)], ids=["2x4", "1x8"])
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "granite-moe-1b-a400m"])
+def test_sharded_grads_match_jax(name, shape):
+    japi, jparams, api, params = _models(name)
+    cfg = api.cfg
+    tokens = _tokens(cfg)
+    got = _port_grads(api, params, tokens, _host_mesh(*shape))
+    want = _jax_grads(japi, jparams, tokens, shape[0], cfg)
+    assert set(got) == set(want)
+    for k, g in got.items():
+        ref = want[k].detach().double()
+        err = float((g.double() - ref).norm() / ref.norm())
+        assert err <= GRAD, (k, err)
+
+
+def test_sharded_backward_collectives_by_tag():
+    _, _, api, params = _models("olmoe-1b-7b")
+    cfg = api.cfg
+    mesh = _host_mesh(2, 4)
+    _port_grads(api, params, _tokens(cfg), mesh)
+    L = cfg.n_layers
+    # forward: psum(y, model) and the aux mean; backward: the transposes of
+    # the in_specs: x over "model", the router over every axis, and each of
+    # the three expert weights over the batch axes
+    assert mesh.counts == {"allreduce": 7 * L, "allreduce.model": L, "allreduce.aux": L,
+                           "allreduce.grad_x": L, "allreduce.grad_router": L,
+                           "allreduce.grad_experts": 3 * L}
+    # result bytes a shard, by group: x's block (2 x 16 x d f32) over the 4 model
+    # shards, the router over all 8, the experts' blocks over the 2 data shards
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    assert mesh.coll_bytes[("allreduce", 8)] == L * d * E * 4
+    assert mesh.coll_bytes[("allreduce", 2)] == L * (4 + 3 * (E // 4) * d * f * 4)
+    assert mesh.coll_bytes[("allreduce", 4)] == L * 2 * (2 * 16 * d * 4)
+
+
+def test_sharded_remat_gives_the_same_grads():
+    _, _, api, params = _models("granite-moe-1b-a400m")
+    tokens = _tokens(api.cfg)
+    plain = _port_grads(api, params, tokens, _host_mesh(2, 4))
+    remat_mesh = _host_mesh(2, 4)
+    remat = _port_grads(api, params, tokens, remat_mesh, remat=True)
+    for k, g in plain.items():
+        torch.testing.assert_close(remat[k], g, rtol=0, atol=0)
+    # remat reruns each layer's forward region once more in the backward
+    L = api.cfg.n_layers
+    assert remat_mesh.counts["allreduce.model"] == 2 * L
+    assert remat_mesh.counts["allreduce.grad_x"] == L
