@@ -14,9 +14,11 @@ writes a JSON record per cell. Everything is built on the ``meta`` device
 
 Each record holds ``status`` (``long_500k`` is skipped for full quadratic
 attention), ``program``, ``memory.argument_bytes_per_device`` (the sum of
-the blocks one device holds: the parameters, plus AdamW's m and v and the
-step counters when training, plus the batch, plus the cache when
-decoding), ``analytic`` (``launch/analytic.py``), ``roofline_analytic``
+the blocks one device holds of the arguments the program reads: the
+parameters, plus AdamW's m and v and the step counters when training,
+plus the batch, plus the cache when decoding; JAX's ``jit`` prunes the
+train step's unread ``labels`` and ``prev_norm``, and so does the port),
+``analytic`` (``launch/analytic.py``), ``roofline_analytic``
 (``launch/roofline.roofline_terms`` of the analytic FLOPs and bytes per
 device at the H100's rates; the collective term is 0 and marked not
 counted), ``sharding_fallbacks`` (the rules' drops, each once) and
@@ -26,30 +28,43 @@ groups as JAX's ``_with_groups`` does, ``remat`` and ``pipelined_clip``
 set the train step's, and ``moe_shard_map`` runs the MoE layers through
 ``moe_ffn_sharded`` on the meta mesh, forward and backward).
 
-The traced half (``trace=True``, the default; JAX's keys in brackets):
+The traced half (``trace=True``, the default; JAX's keys in brackets)
+counts one device's share of the SPMD-partitioned program, as JAX's
+figures are those of the program its partitioner made: ``_trace_cell``
+(JAX's ``_lower_cell``) runs the step program on ``meta`` under the census
+of ``launch/roofline.analyze_program`` with the arguments' shardings, and
+``launch/spmd.py`` propagates a placement to every tensor (the arguments'
+shardings, the activation hints, a parameter's for its gradient, and a
+rule table of aten ops), so every op is counted at the block one device
+holds and every reshard the placements imply is a collective:
 
 * ``trace_s`` (``lower_s``, ``compile_s``): seconds to run the program
   on ``meta``;
 * ``memory.temp_bytes_per_device`` (the memory analysis's temp bytes):
-  the census's peak of live storages the program created, over the
-  devices; ``memory.peak_bytes_per_device``: that plus the argument
-  bytes;
-* ``traced`` (``hlo``): ``flops_per_chip``, ``hbm_bytes_per_chip``,
+  the peak of the live storages the program created, at one device's
+  blocks; ``memory.peak_bytes_per_device``: that plus the argument bytes;
+* ``traced`` (``hlo``): ``flops_per_chip``, ``hbm_bytes_per_chip`` (at
+  the eager op boundary, where XLA counts at its fusion boundary),
   ``wire_bytes_per_chip`` and ``n_ops`` (JAX's ``n_whiles``: eager code
   has no loop to count);
-* ``collectives`` (the same keys as JAX's): the ``shard_map`` regions'
-  all-reduces, their wire bytes a device by kind and their count;
+* ``collectives`` (the same keys as JAX's): the collectives a device
+  runs by kind (``allreduce``, ``allgather``, ``alltoall``, ``shift`` for
+  JAX's all-reduce, all-gather, all-to-all, collective-permute), their
+  wire bytes a device by ``analyze_hlo``'s ring factors and their count
+  (one per reshard: XLA combines some, so counts differ where bytes
+  agree); ``collective_counted`` names both sources, and ``regions``
+  holds the ``shard_map`` regions' own counts by kind and tag and their
+  wire bytes;
 * ``roofline_traced`` (``roofline_hlo``) and ``model_vs_traced_flops``
-  (``model_vs_hlo_flops``: the 6ND FLOPs over the traced FLOPs);
+  (``model_vs_hlo_flops``: the 6ND FLOPs over the traced FLOPs of all
+  devices);
 * ``sharding_fallbacks`` now also holds the drops of the activation
   hints, which fire while the program runs under the rules, as JAX logs
   them while it lowers.
 
-The port has no SPMD partitioner: the program runs at the global shapes,
-so "per chip" is the global count divided by the mesh size, an ideal
-split, where JAX's are the partitioned program's own. Only the explicit
-``shard_map`` regions' collectives are counted (``collective_counted``:
-"shard_map regions"), not the GSPMD collectives JAX's partitioner adds.
+On the 2 x 4 mesh of 8 CPU devices the FLOPs and argument bytes equal
+JAX's compiled program's, and the wire and temp bytes lie within 2x of
+them (tests/test_torch_dryrun_partitioned.py; the gaps in PERF.md).
 ``hlo_raw_cost_analysis`` has no counterpart and is left out.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch whisper-tiny \\
@@ -86,23 +101,40 @@ from .sharding import (
     tree_leaves,
 )
 
-__all__ = ["run_cell", "main", "step_train_config"]
+__all__ = ["run_cell", "main", "step_train_config", "COLLECTIVES_COUNTED"]
+
+# what ``collectives`` counts: both kinds of collective a device runs
+COLLECTIVES_COUNTED = "shard_map regions and the placements' reshards"
 
 
-def _argument_pairs(api, shape, mesh, rules, variant: dict):
-    """(program, [(tensor, sharding)] of the step program's arguments)."""
-    p_sh = named_shardings(param_shardings(api, mesh, rules))
+def _arguments(api, shape):
+    """The step program's arguments on the meta device: (the train state
+    for a train shape, else the parameters; ``input_specs``)."""
     specs = api.input_specs(shape)
+    if shape.kind == "train":
+        return abstract_train_state(api), specs
+    return api.abstract_params(), specs
+
+
+def _argument_pairs(api, shape, mesh, rules, variant: dict, args=None):
+    """(program, [(tensor, sharding)] of the step program's arguments), of
+    ``args`` (``_arguments``) when given. As JAX's ``jit`` prunes the
+    arguments a program never reads, the train step's ``labels`` (its loss
+    shifts ``tokens``) and AdamW's ``prev_norm`` (read by the pipelined
+    clip only) are left out."""
+    p_sh = named_shardings(param_shardings(api, mesh, rules))
+    tree, specs = args if args is not None else _arguments(api, shape)
     sc = scalar_sharding(mesh)
     if shape.kind == "train":
-        state = abstract_train_state(api)
-        pairs = [(t, p_sh[k]) for k, t in state.params.named_parameters()]
-        for moments in (state.opt.m, state.opt.v):
+        pairs = [(t, p_sh[k]) for k, t in tree.params.named_parameters()]
+        for moments in (tree.opt.m, tree.opt.v):
             pairs += [(t, p_sh[k]) for k, t in moments.items()]
-        pairs += [(state.opt.step, sc), (state.opt.prev_norm, sc), (state.step, sc)]
+        pairs += [(tree.opt.step, sc), (tree.step, sc)]
+        if variant.get("pipelined_clip"):
+            pairs.append((tree.opt.prev_norm, sc))
         b_sh = batch_shardings(specs, mesh, rules)
-        return "train_step", pairs + [(specs[k], b_sh[k]) for k in specs]
-    params = [(t, p_sh[k]) for k, t in api.abstract_params().named_parameters()]
+        return "train_step", pairs + [(specs[k], b_sh[k]) for k in specs if k != "labels"]
+    params = [(t, p_sh[k]) for k, t in tree.named_parameters()]
     if shape.kind == "prefill":
         b_sh = batch_shardings(specs, mesh, rules)
         return "prefill", params + [(specs[k], b_sh[k]) for k in specs]
@@ -142,24 +174,40 @@ def step_train_config(variant: dict | None = None) -> TrainConfig:
         remat=variant.get("remat", True))
 
 
-def _step_program(api, shape, variant: dict):
+def _step_program(api, shape, variant: dict, args=None):
     """The step program of a cell on the meta device, as a thunk: JAX's
     ``_lower_cell`` lowers the same three programs. ``train_step`` on
     ``abstract_train_state`` and ``input_specs``; ``prefill``; and the
     ``serve_step``, one ``decode`` at pos = seq_len - 1 on the meta cache.
     The two serving programs run under ``torch.no_grad``, as the port's
     serving entry points do (the parameters require grad: autograd would
-    keep every activation alive)."""
-    specs = api.input_specs(shape)
+    keep every activation alive). ``args`` (``_arguments``) are the
+    tensors it runs on, fresh ones when None."""
+    tree, specs = args if args is not None else _arguments(api, shape)
     if shape.kind == "train":
         step = make_train_step(api, step_train_config(variant))
-        state = abstract_train_state(api)
-        return lambda: step(state, specs)
-    params = api.abstract_params()
+        return lambda: step(tree, specs)
     if shape.kind == "prefill":
-        return torch.no_grad()(lambda: api.prefill(params, specs))
+        return torch.no_grad()(lambda: api.prefill(tree, specs))
     return torch.no_grad()(
-        lambda: api.decode(params, specs["token"], specs["cache"], shape.seq_len - 1))
+        lambda: api.decode(tree, specs["token"], specs["cache"], shape.seq_len - 1))
+
+
+def _trace_cell(cfg, shape, mesh, rules, variant: dict | None = None):
+    """JAX's ``_lower_cell(cfg, shape, mesh, rules, variant)``: the cell's
+    step program with its arguments placed on ``mesh`` under ``rules``,
+    counted at one device's share (``launch/roofline.analyze_program``).
+    Returns (program, [(argument, sharding)], the census, seconds)."""
+    variant = variant or {}
+    api = build_model(cfg)
+    args = _arguments(api, shape)
+    program, pairs = _argument_pairs(api, shape, mesh, rules, variant, args)
+    thunk = _step_program(api, shape, variant, args)
+    t0 = time.perf_counter()
+    with use_sharding_rules(make_resolver(mesh, rules),
+                            mesh if variant.get("moe_shard_map") else None):
+        census = analyze_program(thunk, mesh=mesh, shardings=pairs)
+    return program, pairs, census, time.perf_counter() - t0
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, *, trace: bool = True,
@@ -187,23 +235,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, trace: bool = True,
     mesh = make_production_mesh(multi_pod=multi_pod)
     rules = DEFAULT_RULES()
     t0 = time.perf_counter()
-    api = build_model(cfg)
-    program, pairs = _argument_pairs(api, shape, mesh, rules, variant)
+    if trace:
+        program, pairs, census, rec["trace_s"] = _trace_cell(cfg, shape, mesh, rules, variant)
+    else:
+        api = build_model(cfg)
+        program, pairs = _argument_pairs(api, shape, mesh, rules, variant)
     rec["program"] = program
     rec["memory"] = {"argument_bytes_per_device": sharded_bytes(pairs)}
     if trace:
-        t1 = time.perf_counter()
-        thunk = _step_program(api, shape, variant)
-        with use_sharding_rules(make_resolver(mesh, rules),
-                                mesh if variant.get("moe_shard_map") else None):
-            census = analyze_program(thunk, mesh=mesh)
-        rec["trace_s"] = time.perf_counter() - t1
-        temp = census.peak_live_bytes / n_chips
+        temp = census.peak_live_bytes
         rec["memory"]["temp_bytes_per_device"] = temp
         rec["memory"]["peak_bytes_per_device"] = rec["memory"]["argument_bytes_per_device"] + temp
         rec["traced"] = {
-            "flops_per_chip": census.flops / n_chips,
-            "hbm_bytes_per_chip": census.hbm_bytes / n_chips,
+            "flops_per_chip": census.flops,
+            "hbm_bytes_per_chip": census.hbm_bytes,
             "wire_bytes_per_chip": census.wire_bytes,
             "n_ops": census.n_ops,
             "ops_by_class": census.ops_by_class,
@@ -212,7 +257,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, trace: bool = True,
             "wire_bytes_per_chip": census.wire_bytes,
             "by_kind_bytes": census.coll_by_kind_bytes,
             "by_kind_count": census.coll_by_kind_count,
-            "collective_counted": "shard_map regions",
+            "collective_counted": COLLECTIVES_COUNTED,
+            # the shard_map regions' own collectives, by kind and tag
+            "regions": {"counts": census.region_counts,
+                        "wire_bytes_per_chip": census.region_wire_bytes},
         }
     # each drop once, in the order the rules met them (a hint fires once a layer)
     rec["sharding_fallbacks"] = [
@@ -232,7 +280,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *, trace: bool = True,
         tr = rec["traced"]
         rec["roofline_traced"] = roofline_terms(tr["flops_per_chip"], tr["hbm_bytes_per_chip"],
                                                 tr["wire_bytes_per_chip"])
-        rec["roofline_traced"]["collective_counted"] = "shard_map regions"
+        rec["roofline_traced"]["collective_counted"] = COLLECTIVES_COUNTED
         rec["model_vs_traced_flops"] = (an["model_flops_6nd"] / (tr["flops_per_chip"] * n_chips)
                                         if tr["flops_per_chip"] else None)
     rec["seconds"] = time.perf_counter() - t0

@@ -153,20 +153,30 @@ def shard_map(body: Callable, mesh: Mesh, in_specs: Sequence, out_specs: Sequenc
                           for a, spec in zip(args, in_specs)]
                 return body(sc, *blocks)
 
-        results, comm = solver.run(shard_body)
-        mesh.counts.update(comm.counts)
-        mesh.coll_bytes.update(comm.coll_bytes)
-        home = args[0].device
-        outs = []
-        for i, spec in enumerate(out_specs):
-            named = {a for e in spec for a in entry_axes(e)}
-            parts = {}
-            for rank, res in enumerate(results):
-                coords = solver.coords(rank)
-                if any(coords[a] for a in names if a not in named):
-                    continue  # a replica along an axis the output does not name
-                parts[tuple(coords[a] for a in names)] = res[i]
-            outs.append(_assemble(mesh, spec, parts, home))
+        # a census counting one device's share (launch/roofline) places the
+        # inputs at their in-specs and counts the region at one shard's share
+        census = [m for m in modes if hasattr(m, "enter_region")]
+        for c in census:
+            c.enter_region(mesh, args, in_specs)
+        outs = None
+        try:
+            results, comm = solver.run(shard_body)
+            mesh.counts.update(comm.counts)
+            mesh.coll_bytes.update(comm.coll_bytes)
+            home = args[0].device
+            outs = []
+            for i, spec in enumerate(out_specs):
+                named = {a for e in spec for a in entry_axes(e)}
+                parts = {}
+                for rank, res in enumerate(results):
+                    coords = solver.coords(rank)
+                    if any(coords[a] for a in names if a not in named):
+                        continue  # a replica along an axis the output does not name
+                    parts[tuple(coords[a] for a in names)] = res[i]
+                outs.append(_assemble(mesh, spec, parts, home))
+        finally:
+            for c in census:
+                c.leave_region(mesh, outs, out_specs)
         return tuple(outs)
 
     return run

@@ -33,10 +33,19 @@ do:
   ``analyze_hlo``'s ring factors (2 (n - 1) / n of the payload for an
   all-reduce over n devices).
 
+Given the arguments' shardings, the census counts one device's share, as
+JAX's figures are those of the SPMD-partitioned program: each tensor's
+placement is propagated op by op (``launch/spmd.py``), every op is counted
+at the block one device holds (FLOPs by the same formulas on the local
+shapes, bytes and live storages at local sizes), and the collectives the
+placements imply are counted beside the regions'. A ``shard_map`` region
+is one device's share already: its ops count once a shard, at 1/n each.
+
 Loops need no trip-count fit: eager code runs every iteration.
 """
 from __future__ import annotations
 
+import math
 import threading
 import weakref
 from collections import Counter
@@ -46,6 +55,9 @@ from typing import Callable, Dict, Optional
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
+
+from .sharding import NamedSharding
+from .spmd import _FACTORY, Propagator
 
 __all__ = ["HW", "roofline_terms", "ProgramAnalysis", "analyze_program", "wire_bytes"]
 
@@ -81,19 +93,21 @@ def wire_bytes(kind: str, result_bytes: float, group: int) -> float:
     (``analyze_hlo``'s ring factors)."""
     if kind == "allreduce":
         return 2.0 * result_bytes * (group - 1) / max(group, 1)
-    if kind == "allgather":
+    if kind in ("allgather", "alltoall"):
         return result_bytes * (group - 1) / max(group, 1)
     return float(result_bytes)  # a shift (collective-permute)
 
 
 @dataclass
 class ProgramAnalysis:
-    flops: float = 0.0            # matmul-class, the whole program (every shard's)
+    flops: float = 0.0            # matmul-class: the whole program, or one device's share
     hbm_bytes: float = 0.0        # inputs + outputs of every op not a view or an allocation
-    peak_live_bytes: int = 0      # the most bytes of storages the program created, alive at once
-    wire_bytes: float = 0.0       # per device, the shard_map regions' collectives
+    peak_live_bytes: float = 0    # the most bytes of storages the program created, alive at once
+    wire_bytes: float = 0.0       # per device: the regions' collectives and the placements'
     coll_by_kind_bytes: Dict[str, float] = field(default_factory=dict)
     coll_by_kind_count: Dict[str, int] = field(default_factory=dict)
+    region_counts: Dict[str, int] = field(default_factory=dict)  # the regions' own, by kind.tag
+    region_wire_bytes: float = 0.0  # per device, the regions' collectives alone
     bytes_by_op: Dict[str, float] = field(default_factory=dict)
     ops_by_class: Dict[str, int] = field(default_factory=dict)
     n_ops: int = 0
@@ -107,6 +121,8 @@ _COPY = {"aten.copy_", "aten._to_copy", "aten.clone", "aten.lift_fresh_copy"}
 _INDEX = ("index", "gather", "scatter", "embedding", "sort", "topk", "searchsorted", "take",
           "masked")
 _CIA = torch._C.DispatchKey.CompositeImplicitAutograd
+_MM_FLOPS = {"aten.mm", "aten.bmm", "aten.addmm", "aten.baddbmm"}
+_SCATTER = {"aten.scatter", "aten.scatter_add"}
 
 
 class _Op:
@@ -156,17 +172,29 @@ def _nbytes(t: torch.Tensor) -> int:
 class _Census(TorchDispatchMode):
     """Counts every aten op run under it (see the module docstring). The
     counters take a lock: ``shard_map`` regions run it on one thread a
-    shard."""
+    shard. With a :class:`~.spmd.Propagator` it counts one device's share:
+    ops on the thread that entered it at their local blocks, ops of a
+    ``shard_map`` region (another thread, or the region's own assembly) at
+    1/n of each shard's."""
 
-    def __init__(self):
+    def __init__(self, spmd: Optional[Propagator] = None):
         super().__init__()
         self.out = ProgramAnalysis()
+        self.spmd = spmd
         self._lock = threading.RLock()  # a storage may die (and _free run) inside
-        self._live: Dict[int, int] = {}   # storage -> bytes, created under the census
+        self._live: Dict[int, float] = {}  # storage -> bytes, created under the census
         self._refs: Dict[int, weakref.ref] = {}
         self._now = 0
         self._by_op: Counter = Counter()
         self._by_class: Counter = Counter()
+        self._home = threading.get_ident()
+        self._region_depth = 0   # > 0 while the home thread runs a shard_map region
+        self._region_size = 1
+        # a factory's storage (zeros, empty, ...) counts from its first reader,
+        # at the cut the placements give it by then (as XLA materializes it)
+        self._pending: Dict[int, int] = {}
+        if spmd is not None:
+            spmd.on_refine = self._shrink
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -180,25 +208,99 @@ class _Census(TorchDispatchMode):
                 if r is not NotImplemented:
                     return r
         out = func(*args, **kwargs)
-        self._record(op, args, kwargs, out)
+        self._record(op, func, args, kwargs, out)
         return out
 
-    def _record(self, op: _Op, args, kwargs, out) -> None:
+    # -- the hooks of launch/mesh.shard_map and models/common.shard_hint --
+    def _propagating(self) -> bool:
+        return (self.spmd is not None and self._region_depth == 0
+                and threading.get_ident() == self._home)
+
+    def placement_hint(self, t: torch.Tensor, sharding) -> None:
+        if self._propagating():
+            with self._lock:
+                self.spmd.hint(t, sharding)
+
+    def _grad_hint(self, t: torch.Tensor, pl) -> None:
+        if self._propagating():
+            with self._lock:
+                self.spmd.constrain(t, pl)
+
+    def enter_region(self, mesh, args, in_specs) -> None:
+        if self._propagating() and mesh.shape == self.spmd.layout.mesh.shape:
+            with self._lock:
+                for a, spec in zip(args, in_specs):
+                    self.spmd.constrain(a, self.spmd.layout.placement(
+                        NamedSharding(mesh, spec), a.shape))
+        if threading.get_ident() == self._home:
+            self._region_depth += 1
+            self._region_size = mesh.size
+
+    def leave_region(self, mesh, outs, out_specs) -> None:
+        if threading.get_ident() != self._home:
+            return
+        self._region_depth -= 1
+        if self._propagating() and outs is not None \
+                and mesh.shape == self.spmd.layout.mesh.shape:
+            with self._lock:
+                for o, spec in zip(outs, out_specs):
+                    self.spmd.place(o, NamedSharding(mesh, spec))
+
+    # -- counting -------------------------------------------------------
+    def _record(self, op: _Op, func, args, kwargs, out) -> None:
         ins = _tensors(kwargs, _tensors(args, []))
         outs = _tensors(out, [])
-        in_keys = {_key(t) for t in ins}
+        in_list = [_key(t) for t in ins]
+        in_keys = set(in_list)
         out_keys = [_key(t) for t in outs]
-        flops = op.flop_fn(*args, **kwargs, out_val=out) if op.flop_fn else 0
-        cls, moved = op.cls, 0
+        cls, is_view = op.cls, False
         if op.view or (not op.mutable and outs and all(k in in_keys for k in out_keys)):
-            cls = "view"
-        elif cls != "alloc":
-            moved = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
+            cls, is_view = "view", True
+        weight = 1.0
+        local = None  # (read placements, output placements) on one device
+        if self.spmd is not None:
+            if self._propagating():
+                with self._lock:
+                    local = self.spmd.rule(op.name, func, args, kwargs, ins, outs)
+            else:
+                weight = 1.0 / self._region_size if self._region_size > 1 else 1.0
+        if local is None:
+            flops = op.flop_fn(*args, **kwargs, out_val=out) if op.flop_fn else 0
+            out_b = [_nbytes(t) for t in outs]
+            in_b = [_nbytes(t) for t in ins] if not is_view else ()
+        else:
+            read, placed = local
+            sp = self.spmd
+            out_b = [sp.local_bytes(t, p) for t, p in zip(outs, placed)]
+            in_b = [sp.local_bytes(t, p) for t, p in zip(ins, read)] if not is_view else ()
+            flops = self._local_flops(op, args, kwargs, out, ins, read, outs, placed) \
+                if op.flop_fn else 0
+        moved = 0
+        if not is_view and cls != "alloc":
+            moved = sum(in_b) + sum(out_b)
             if cls is None:
                 cls = ("reduction" if ins and outs and
                        max(t.numel() for t in outs) < max(t.numel() for t in ins)
                        else "elementwise")
+        if weight != 1.0:
+            flops, moved = flops * weight, moved * weight
         with self._lock:
+            # a scatter into a fresh factory's tensor stays unmaterialized too
+            lazy = (local is not None and op.name in _SCATTER and bool(ins)
+                    and in_list[0] in self._pending)
+            if local is not None and self._pending:
+                for i, (t, k) in enumerate(zip(ins, in_list)):
+                    if k in self._pending and not (lazy and i == 0):
+                        nb = self._pending.pop(k) * self.spmd.local_numel(t, self.spmd.get(t)) \
+                            / max(t.numel(), 1)
+                        self._live[k] = nb
+                        self._now += nb
+                        self.out.peak_live_bytes = max(self.out.peak_live_bytes, self._now)
+            if local is not None:
+                for t, p in zip(outs, placed):
+                    if p.origin is None and op.flop_fn and len(outs) == 1:
+                        p.origin = {"flops": flops, "out_bytes": out_b[0]}
+                    self.spmd.set(t, p)
             o = self.out
             o.n_ops += 1
             o.flops += flops
@@ -208,46 +310,124 @@ class _Census(TorchDispatchMode):
             self._by_class[cls] += 1
             if moved:
                 self._by_op[op.name] += moved
-            for t, k in zip(outs, out_keys):
+            for t, k, b in zip(outs, out_keys, out_b):
                 if k in in_keys or k in self._live:
                     continue  # written in place, or a second view of a new storage
                 st = t.untyped_storage()
-                self._live[k] = st.nbytes()
+                nb = st.nbytes()
                 self._refs[k] = weakref.ref(st, lambda _, k=k: self._free(k))
-                self._now += self._live[k]
+                if local is not None and (lazy or op.name in _FACTORY):
+                    self._pending[k] = nb
+                    continue
+                if local is not None and (n := _nbytes(t)) and b != n:
+                    nb = nb * b / n  # the storage at the output's local share
+                if weight != 1.0:
+                    nb = nb * weight
+                self._live[k] = nb
+                self._now += nb
                 o.peak_live_bytes = max(o.peak_live_bytes, self._now)
+
+    def _local_flops(self, op, args, kwargs, out, ins, read, outs, placed) -> float:
+        """The op's FLOPs on the blocks one device holds (the formula of
+        ``flop_registry`` on meta tensors of the local shapes)."""
+        sp = self.spmd
+        if op.name in _MM_FLOPS:  # flop_registry's formula: 2 * out * contraction
+            (a, b) = [sp.local_shape(t, p) for t, p in zip(ins, read)][-2:]
+            return 2 * math.prod(a) * b[-1]
+        swap = {}
+        for t, p in zip(ins + outs, read + placed):
+            shape = sp.local_shape(t, p)
+            if shape != tuple(t.shape):
+                swap[id(t)] = torch.empty(shape, dtype=t.dtype, device="meta")
+        if not swap:
+            return op.flop_fn(*args, **kwargs, out_val=out)
+
+        def sub(x):
+            if isinstance(x, torch.Tensor):
+                return swap.get(id(x), x)
+            if isinstance(x, (list, tuple)):
+                return type(x)(sub(y) for y in x)
+            return x
+
+        return op.flop_fn(*sub(list(args)), **{k: sub(v) for k, v in kwargs.items()},
+                          out_val=sub(out))
+
+    def _shrink(self, t: torch.Tensor, factor: int) -> None:
+        """``t`` was cut ``factor`` times finer: a storage it spans whole
+        is held at the finer block (XLA materializes the value so)."""
+        k = _key(t)
+        if k in self._live and _nbytes(t) == t.untyped_storage().nbytes():
+            cut = self._live[k] * (1 - 1 / factor)
+            self._live[k] -= cut
+            self._now -= cut
 
     def _free(self, k: int) -> None:
         with self._lock:
             self._refs.pop(k, None)
+            self._pending.pop(k, None)
             self._now -= self._live.pop(k, 0)
+            if self.spmd is not None:
+                self.spmd.forget(k)
 
     def result(self) -> ProgramAnalysis:
         with self._lock:
             self.out.bytes_by_op = dict(self._by_op)
             self.out.ops_by_class = dict(self._by_class)
+            if self.spmd is not None:
+                self.out.flops -= self.spmd.flops_refund
+                self.out.hbm_bytes -= self.spmd.bytes_refund
         return self.out
 
 
-def analyze_program(fn: Callable, *args, mesh=None, **kwargs) -> ProgramAnalysis:
+def _add_collectives(out: ProgramAnalysis, counts: Counter, coll_bytes: Counter) -> None:
+    for kind in ("allreduce", "allgather", "alltoall", "shift"):
+        if counts[kind]:
+            out.coll_by_kind_count[kind] = out.coll_by_kind_count.get(kind, 0) + counts[kind]
+    for (kind, group), b in coll_bytes.items():
+        w = wire_bytes(kind, b, group)
+        out.coll_by_kind_bytes[kind] = out.coll_by_kind_bytes.get(kind, 0.0) + w
+        out.wire_bytes += w
+
+
+def analyze_program(fn: Callable, *args, mesh=None, shardings=None, **kwargs) -> ProgramAnalysis:
     """Run ``fn(*args, **kwargs)`` under the census and return what it
     counted (see the module docstring). Give it ``meta`` tensors to count
     a program without running it; on real tensors it runs the program and
     counts the same. ``mesh`` (a ``launch.mesh.Mesh``) adds the
-    collectives its ``shard_map`` regions ran during the call."""
+    collectives its ``shard_map`` regions ran during the call.
+
+    ``shardings``, [(tensor, NamedSharding)] of the program's arguments
+    on ``mesh``, makes every figure one device's share (the module
+    docstring); the gradient of an argument that requires grad takes the
+    argument's placement. On a mesh of one device every figure is the
+    global count."""
     before_n = Counter(mesh.counts) if mesh is not None else Counter()
     before_b = Counter(mesh.coll_bytes) if mesh is not None else Counter()
-    census = _Census()
-    with census:
-        fn(*args, **kwargs)
+    spmd = None
+    hooks = []
+    if shardings is not None and mesh is None:
+        raise ValueError("shardings need the mesh they place the arguments on")
+    if shardings is not None and mesh.size > 1:  # one device holds every tensor whole
+        spmd = Propagator(mesh)
+    census = _Census(spmd)
+    if spmd is not None:
+        for t, sh in shardings:
+            pl = spmd.fix(t, sh)
+            if t.requires_grad and t.is_leaf:
+                hooks.append(t.register_hook(
+                    lambda g, pl=pl: census._grad_hint(g, pl)))
+    try:
+        with census:
+            fn(*args, **kwargs)
+    finally:
+        for h in hooks:
+            h.remove()
     out = census.result()
     if mesh is not None:
-        for kind in ("allreduce", "allgather", "shift"):
-            n = mesh.counts[kind] - before_n[kind]
-            if n:
-                out.coll_by_kind_count[kind] = n
-        for (kind, group), b in (Counter(mesh.coll_bytes) - before_b).items():
-            w = wire_bytes(kind, b, group)
-            out.coll_by_kind_bytes[kind] = out.coll_by_kind_bytes.get(kind, 0.0) + w
-            out.wire_bytes += w
+        regions = Counter(mesh.counts) - before_n
+        _add_collectives(out, regions, Counter(mesh.coll_bytes) - before_b)
+        out.region_counts = dict(regions)
+        out.region_wire_bytes = out.wire_bytes
+    if spmd is not None:
+        _add_collectives(out, spmd.counts, spmd.coll_bytes)
     return out

@@ -29,6 +29,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 __all__ = [
     "DTYPES",
@@ -157,11 +158,18 @@ def current_mesh():
 
 def shard_hint(x: torch.Tensor, axes: Tuple[Optional[str], ...]) -> torch.Tensor:
     """``x`` unchanged. Under ``use_sharding_rules`` the resolver sees the
-    hint first (and logs a rule it drops); JAX then constrains x's layout,
-    which has no counterpart without an SPMD partitioner."""
+    hint first (and logs a rule it drops); JAX then constrains x's layout
+    (``with_sharding_constraint``). Here the resolver's sharding goes to
+    the dry run's census, if one is counting (``launch/roofline``), which
+    reshards its placement of ``x``."""
     resolver = _ACTIVE_RULES.get()
     if resolver is not None:
-        resolver(tuple(x.shape), axes)
+        sharding = resolver(tuple(x.shape), axes)
+        if sharding is not None:
+            for mode in _get_current_dispatch_mode_stack():
+                hint = getattr(mode, "placement_hint", None)
+                if hint is not None:
+                    hint(x, sharding)
     return x
 
 

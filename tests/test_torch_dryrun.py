@@ -6,7 +6,7 @@ whole 10 x 4 x 2 sweep, untraced, classified as JAX's dry-run classifies it
 (ok, or the quadratic long_500k skip); and ``argument_bytes_per_device`` equal to
 the sum of the blocks of JAX's own shardings on ``AbstractMesh``
 (``NamedSharding.shard_shape``), built as JAX's dry-run builds its
-``in_shardings``. Everything runs on the meta device: no allocation.
+``in_shardings``, of the arguments its compiled step keeps. Everything runs on the meta device: no allocation.
 """
 import json
 import math
@@ -76,7 +76,12 @@ def test_sweep_classifies_every_cell_as_jax(tmp_path):
 
 
 def _jax_argument_bytes(arch, shape_name, multi, layout):
-    """What JAX's dry-run passes as arguments, as blocks of its shardings."""
+    """What JAX's dry-run passes as arguments, as blocks of its shardings.
+    ``jit`` prunes the arguments a program never reads (``keep_unused``
+    is False), so the train step's ``labels`` and AdamW's ``prev_norm``
+    (read by the pipelined clip only) are no argument of the compiled
+    step (tests/test_torch_dryrun_partitioned.py holds the sum to
+    ``memory_analysis().argument_size_in_bytes``)."""
     mesh = (AbstractMesh((2, 16, 16), ("pod", "data", "model")) if multi
             else AbstractMesh((16, 16), ("data", "model")))
     rules = jsh.DEFAULT_RULES()
@@ -87,9 +92,10 @@ def _jax_argument_bytes(arch, shape_name, multi, layout):
     sc = jsh.scalar_sharding(mesh)
     if shape.kind == "train":
         state = jabstract_train_state(api)
+        read = {k: v for k, v in specs.items() if k != "labels"}
         pairs = [(state.params, p_sh), (state.opt.m, p_sh), (state.opt.v, p_sh),
-                 ([state.opt.step, state.opt.prev_norm, state.step], [sc, sc, sc]),
-                 (specs, jsh.batch_shardings(specs, mesh, rules))]
+                 ([state.opt.step, state.step], [sc, sc]),
+                 (read, jsh.batch_shardings(read, mesh, rules))]
     elif shape.kind == "prefill":
         pairs = [(api.abstract_params(), p_sh), (specs, jsh.batch_shardings(specs, mesh, rules))]
     else:

@@ -135,7 +135,7 @@ def test_shard_map_region_counted_on_every_shard():
 
 def test_wire_bytes_are_analyze_hlo_ring_factors():
     for ours, theirs in (("allreduce", "all-reduce"), ("allgather", "all-gather"),
-                         ("shift", "collective-permute")):
+                         ("alltoall", "all-to-all"), ("shift", "collective-permute")):
         for group in (2, 16, 256):
             hl = HloAnalysis()
             hl.add_coll(theirs, 4096, group, 1.0)
@@ -147,12 +147,15 @@ def test_whisper_train_record_and_fallbacks_are_jax():
     assert rec["trace_s"] > 0 and rec["traced"]["n_ops"] > 0
     for k in ("flops_per_chip", "hbm_bytes_per_chip", "wire_bytes_per_chip"):
         assert k in rec["traced"]
-    assert rec["traced"]["flops_per_chip"] > 0 and rec["traced"]["wire_bytes_per_chip"] == 0
+    # one device's share: the partitioner's all-reduces and all-gathers are counted
+    assert rec["traced"]["flops_per_chip"] > 0 and rec["traced"]["wire_bytes_per_chip"] > 0
     assert set(rec["collectives"]) >= {"wire_bytes_per_chip", "by_kind_bytes", "by_kind_count"}
+    assert rec["collectives"]["by_kind_count"]["allreduce"] > 0
+    assert rec["collectives"]["regions"] == {"counts": {}, "wire_bytes_per_chip": 0.0}
     mem = rec["memory"]
     assert mem["peak_bytes_per_device"] == mem["argument_bytes_per_device"] + \
         mem["temp_bytes_per_device"] > mem["argument_bytes_per_device"]
-    assert rec["roofline_traced"]["collective_counted"] == "shard_map regions"
+    assert rec["roofline_traced"]["collective_counted"] == dryrun.COLLECTIVES_COUNTED
     assert rec["model_vs_traced_flops"] == pytest.approx(
         rec["analytic"]["model_flops_6nd"] / (rec["traced"]["flops_per_chip"] * 256))
     # JAX's drops: its parameters', then the activation hints its forward
@@ -180,18 +183,22 @@ def test_olmoe_shard_map_cell_traces_both_regions():
     assert rec["status"] == "ok" and rec["variant"] == variant
     cfg = configs.get_config("olmoe-1b-7b")
     # a layer: psum(y) and the aux mean, again in the remat recompute, then
-    # the backward's grad_x, grad_router and three grad_experts
-    assert rec["collectives"]["by_kind_count"] == {"allreduce": 9}
+    # the backward's grad_x, grad_router and three grad_experts (the regions'
+    # own; the placements' collectives come on top of them)
+    regions = rec["collectives"]["regions"]
+    assert {k: v for k, v in regions["counts"].items() if "." not in k} == {"allreduce": 9}
+    assert rec["collectives"]["by_kind_count"]["allreduce"] > 9
     B_loc, T, d, f = 256 // 16, 4096, cfg.d_model, cfg.d_ff
     y, aux = B_loc * T * d * 2, 4  # a shard's block of y (bf16), the aux scalar
     router, expert = d * cfg.n_experts * 2, (cfg.n_experts // 16) * d * f * 2
     want = (2 * (wire_bytes("allreduce", y, 16) + wire_bytes("allreduce", aux, 16))
             + wire_bytes("allreduce", y, 16) + wire_bytes("allreduce", router, 256)
             + 3 * wire_bytes("allreduce", expert, 16))
-    assert rec["traced"]["wire_bytes_per_chip"] == pytest.approx(want, rel=1e-12)
+    assert regions["wire_bytes_per_chip"] == pytest.approx(want, rel=1e-12)
+    assert rec["traced"]["wire_bytes_per_chip"] > regions["wire_bytes_per_chip"]
     assert rec["roofline_traced"]["collective_s"] > 0
     # the same cell without the variant runs moe_ffn on the whole batch: no region
     plain = dryrun.run_cell("olmoe-1b-7b", "train_4k", False, verbose=False,
                             variant={"groups": 1})
-    assert plain["collectives"]["by_kind_count"] == {}
+    assert plain["collectives"]["regions"]["counts"] == {}
     assert math.isclose(plain["analytic"]["detailed_flops"], rec["analytic"]["detailed_flops"])
