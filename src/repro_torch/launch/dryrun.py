@@ -17,7 +17,8 @@ attention), ``program``, ``memory.argument_bytes_per_device`` (the sum of
 the blocks one device holds of the arguments the program reads: the
 parameters, plus AdamW's m and v and the step counters when training,
 plus the batch, plus the cache when decoding; JAX's ``jit`` prunes the
-train step's unread ``labels`` and ``prev_norm``, and so does the port),
+arguments a program never reads, and so does the port: see
+``_argument_pairs``),
 ``analytic`` (``launch/analytic.py``), ``roofline_analytic``
 (``launch/roofline.roofline_terms`` of the analytic FLOPs and bytes per
 device at the H100's rates; the collective term is 0 and marked not
@@ -64,7 +65,9 @@ holds and every reshard the placements imply is a collective:
 
 On the 2 x 4 mesh of 8 CPU devices the FLOPs and argument bytes equal
 JAX's compiled program's, and the wire and temp bytes lie within 2x of
-them (tests/test_torch_dryrun_partitioned.py; the gaps in PERF.md).
+them, in every family (tests/test_torch_dryrun_partitioned.py and
+tests/test_torch_dryrun_families.py, which hold four FLOP gaps that are
+the reference program's own to the byte; PERF.md).
 ``hlo_raw_cost_analysis`` has no counterpart and is left out.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch whisper-tiny \\
@@ -119,9 +122,10 @@ def _arguments(api, shape):
 def _argument_pairs(api, shape, mesh, rules, variant: dict, args=None):
     """(program, [(tensor, sharding)] of the step program's arguments), of
     ``args`` (``_arguments``) when given. As JAX's ``jit`` prunes the
-    arguments a program never reads, the train step's ``labels`` (its loss
-    shifts ``tokens``) and AdamW's ``prev_norm`` (read by the pipelined
-    clip only) are left out."""
+    arguments a program never reads, these are left out: the train step's
+    ``labels`` (its loss shifts ``tokens``) and AdamW's ``prev_norm`` (read
+    by the pipelined clip only), and of the serve step what the model's
+    ``decode`` does not read (``ModelApi.decode_reads``)."""
     p_sh = named_shardings(param_shardings(api, mesh, rules))
     tree, specs = args if args is not None else _arguments(api, shape)
     sc = scalar_sharding(mesh)
@@ -134,15 +138,20 @@ def _argument_pairs(api, shape, mesh, rules, variant: dict, args=None):
             pairs.append((tree.opt.prev_norm, sc))
         b_sh = batch_shardings(specs, mesh, rules)
         return "train_step", pairs + [(specs[k], b_sh[k]) for k in specs if k != "labels"]
-    params = [(t, p_sh[k]) for k, t in tree.named_parameters()]
     if shape.kind == "prefill":
         b_sh = batch_shardings(specs, mesh, rules)
+        params = [(t, p_sh[k]) for k, t in tree.named_parameters()]
         return "prefill", params + [(specs[k], b_sh[k]) for k in specs]
-    c_sh = cache_shardings(specs["cache"], shape, mesh, rules,
+    reads = api.decode_reads
+    params = [(t, p_sh[k]) for k, t in tree.named_parameters() if reads("params." + k)]
+    cache = specs["cache"]
+    c_sh = cache_shardings(cache, shape, mesh, rules,
                            layout=variant.get("cache_layout", "default"))
     tok_sh = batch_shardings({"token": specs["token"]}, mesh, rules)["token"]
-    cache = list(zip(tree_leaves(specs["cache"]), tree_leaves(c_sh)))
-    return "serve_step", params + [(specs["token"], tok_sh)] + cache + [(specs["pos"], sc)]
+    kept = [pair for f, t, sh in zip(cache._fields, cache, c_sh) if reads("cache." + f)
+            for pair in zip(tree_leaves(t), tree_leaves(sh))]
+    pos = [(specs["pos"], sc)] if reads("pos") else []
+    return "serve_step", params + [(specs["token"], tok_sh)] + kept + pos
 
 
 def _group_size(cfg) -> int:

@@ -299,7 +299,8 @@ class _Census(TorchDispatchMode):
             if local is not None:
                 for t, p in zip(outs, placed):
                     if p.origin is None and op.flop_fn and len(outs) == 1:
-                        p.origin = {"flops": flops, "out_bytes": out_b[0]}
+                        p.origin = {"flops": flops, "out_bytes": out_b[0],
+                                    "cut": frozenset(p.used() | p.partial)}
                     self.spmd.set(t, p)
             o = self.out
             o.n_ops += 1

@@ -31,8 +31,13 @@ unpacks is the same block). Placements enter from three places:
   softmax, log-softmax and layer norm (their dim is gathered first);
   ``embedding``, ``index_select`` and ``gather`` (a lookup into a dim
   sharded over factors gives a partial sum over them, as a masked lookup
-  does); factories (replicated). Any other op has its inputs gathered to
-  replicated and its outputs replicated.
+  does); advanced indexing, MoE routing's (``index``: the rows keep the
+  index's cut, an operand cut on an indexed dim is gathered or looked up
+  masked, whichever moves fewer bytes; ``index_put``: a write into a
+  fresh zero buffer stays local where the index is and leaves a partial
+  sum); ``copy_`` into a buffer the program made (it
+  takes the source's cut); factories (replicated). Any other op has its
+  inputs gathered to replicated and its outputs replicated.
 
 A reshard counts the collective it takes, at the bytes of one device's
 block, into ``counts`` and ``coll_bytes`` (the keys of a ``Mesh``'s
@@ -137,14 +142,17 @@ class Placement:
     merged from sharded dims keeps each factor's stride). ``partial``: the
     factors over which the value is an unreduced sum; ``origin``: the
     record of the matmul this tensor is the direct output of (see
-    :meth:`Propagator.refine`)."""
+    :meth:`Propagator.refine`); ``parts``: {dim: the sizes of the dims a
+    reshape merged into it, major first}, for a batched matmul's batch
+    dim (see :meth:`Propagator._matmul`)."""
 
-    __slots__ = ("dims", "partial", "origin")
+    __slots__ = ("dims", "partial", "origin", "parts")
 
-    def __init__(self, dims, partial=frozenset(), origin=None):
+    def __init__(self, dims, partial=frozenset(), origin=None, parts=None):
         self.dims = tuple(dims)  # each entry canonical (``_canon``)
         self.partial = partial if type(partial) is frozenset else frozenset(partial)
         self.origin = origin
+        self.parts = parts
 
     @staticmethod
     def replicated(ndim: int) -> "Placement":
@@ -168,6 +176,14 @@ class Placement:
 
     def __repr__(self) -> str:
         return f"Placement({self.dims}, partial={sorted(self.partial)})"
+
+
+def _adjacent(indices) -> bool:
+    """An advanced index of integer tensors on adjacent dims (the output
+    takes the index's dims where the indexed dims were)."""
+    at = [i for i, t in enumerate(indices) if t is not None]
+    return (bool(at) and at == list(range(at[0], at[-1] + 1))
+            and all(indices[i].dtype not in (torch.bool, torch.uint8) for i in at))
 
 
 def _key(t: torch.Tensor) -> tuple:
@@ -241,6 +257,9 @@ _FACTORY = {"aten.empty", "aten.empty_strided", "aten.zeros", "aten.ones", "aten
             "aten.eye", "aten.linspace", "aten.new_empty", "aten.new_zeros", "aten.new_ones",
             "aten.new_full", "aten.new_empty_strided", "aten.tensor", "aten.lift_fresh_copy",
             "aten._local_scalar_dense"}
+_ZEROS = {"aten.zeros", "aten.new_zeros", "aten.zeros_like"}
+_INDEX_PUT = {"aten.index_put", "aten.index_put_", "aten._index_put_impl_",
+              "aten._unsafe_index_put"}
 _LIKE = {"aten.empty_like", "aten.zeros_like", "aten.ones_like", "aten.full_like",
          "aten.rand_like", "aten.randn_like"}
 
@@ -257,11 +276,13 @@ class Propagator:
         self.counts: Counter = Counter()
         self.coll_bytes: Counter = Counter()
         self._fixed: set = set()  # the arguments' keys
+        self._fixed_storage: set = set()
         self._plans: Dict[tuple, tuple] = {}  # reshape plans, by shapes and placement
         self._numel: Dict[tuple, int] = {}
         self.on_refine = None  # on_refine(t, factor): the census shrinks t's storage
         self.flops_refund = 0.0  # FLOPs of matmuls recounted at a finer block
         self.bytes_refund = 0.0
+        self._zeros: Dict[int, set] = {}  # storage -> geometries of unwritten zero factories
 
     # -- the store ------------------------------------------------------
     def get(self, t: torch.Tensor) -> Placement:
@@ -281,10 +302,25 @@ class Propagator:
         k = _key(t)
         self._pl.setdefault(k[0], {})[k[1:]] = pl
         self._fixed.add(k)
+        self._fixed_storage.add(k[0])
         return pl
 
     def forget(self, storage: int) -> None:
         self._pl.pop(storage, None)
+        self._zeros.pop(storage, None)
+
+    def _fresh(self, t: torch.Tensor) -> bool:
+        """``t`` is a zero factory's output nothing has written into yet."""
+        k = _key(t)
+        return k[1:] in self._zeros.get(k[0], ())
+
+    def _written(self, t: torch.Tensor) -> None:
+        k = _key(t)
+        geoms = self._zeros.get(k[0])
+        if geoms is not None:
+            geoms.discard(k[1:])
+            if not geoms:
+                del self._zeros[k[0]]
 
     def place(self, t: torch.Tensor, sharding) -> None:
         """Give ``t`` a sharding's placement (a ``shard_map`` output its
@@ -374,20 +410,24 @@ class Propagator:
 
     def refine(self, t: torch.Tensor, pl: Placement, target: Placement) -> Placement:
         """``t`` cut finer (a local slice): it keeps ``target``. When ``t``
-        is a matmul's output, the matmul is recounted at the finer block
-        (the added factors were whole in both its operands)."""
+        is a matmul's output or a reshape or permutation of it, the matmul
+        is recounted at the finer block (the added factors were whole in
+        both its operands), once for each factor however many views of the
+        output are cut by it."""
         new = Placement(target.dims, pl.partial)
-        extra = self.layout.size([f for h, w in zip(pl.dims, target.dims)
-                                  for f, _ in set(w) - set(h)])
-        if pl.origin is not None and extra > 1:
-            rec = pl.origin
-            cut = rec["flops"] * (1 - 1 / extra)
-            cut_b = rec["out_bytes"] * (1 - 1 / extra)
+        added = {f for h, w in zip(pl.dims, target.dims) for f, _ in set(w) - set(h)}
+        extra = self.layout.size(added)
+        rec = pl.origin
+        once = self.layout.size(added - rec["cut"]) if rec is not None else 1
+        if rec is not None and once > 1:
+            rec["cut"] = rec["cut"] | added  # another view of the output may be cut alike
+            cut = rec["flops"] * (1 - 1 / once)
+            cut_b = rec["out_bytes"] * (1 - 1 / once)
             rec["flops"] -= cut
             rec["out_bytes"] -= cut_b
             self.flops_refund += cut
             self.bytes_refund += cut_b
-            new.origin = rec
+        new.origin = rec
         if extra > 1 and self.on_refine is not None:
             self.on_refine(t, extra)
         self.set(t, new)
@@ -445,6 +485,10 @@ class Propagator:
         """(the placements the op reads its tensor inputs ``ins`` (those of
         ``args`` then ``kwargs``) at; the placements of ``outs``)."""
         pls = [self.get(t) for t in ins]
+        if name in _ZEROS:
+            self._zeros.setdefault(_key(outs[0])[0], set()).add(_key(outs[0])[1:])
+        elif self._zeros and outs and name not in _INDEX_PUT and func._schema.is_mutable:
+            self._written(outs[0])  # written in place: no longer a fresh zero buffer
         if name in _FACTORY or not ins:
             return pls, [Placement.replicated(o.dim()) for o in outs]
         if name in _LIKE:  # the input's cut, none of its values
@@ -474,10 +518,20 @@ class Propagator:
             return self._split(name, args, kwargs, ins, pls, outs)
         if name in ("aten.scatter", "aten.scatter_add"):
             return self._scatter(args, ins, pls, outs)
+        if name == "aten.index" and _adjacent(args[1]):
+            return self._index_rows(args, ins, pls, outs)
+        if name in _INDEX_PUT and _adjacent(args[1]):
+            return self._index_put(args, ins, pls, outs)
         if name in ("aten.slice_backward", "aten.select_backward"):
             return self._slice_backward(name, args, ins, pls, outs)
         if func.is_view or name in _SAME or name in _RESHAPE:
             return self._view(name, args, ins, pls, outs)
+        if name == "aten.copy_" and ins[0].shape == ins[1].shape \
+                and _key(ins[0])[0] not in self._fixed_storage:
+            # a whole overwrite of a buffer the program made: it holds the
+            # source's blocks (XLA gives a dynamic-update-slice the update's
+            # sharding); an argument's buffer keeps its own (below)
+            return [pls[1], pls[1]], [Placement(pls[1].dims, pls[1].partial)]
         if torch.Tag.pointwise in func.tags or name in _POINTWISE:
             return self._pointwise(name, func, ins, pls, outs)
         return self._fallback(func, ins, pls, outs)
@@ -537,13 +591,33 @@ class Propagator:
         operands want one factor on different dims, the output's own dims
         take it first, then the batch, then the contraction: the other
         operand is resharded, as XLA's partitioner keeps an output dim's
-        cut and spares the partial sum's all-reduce."""
+        cut and spares the partial sum's all-reduce.
+
+        A bmm whose batch dim a reshape merged from several dims (an
+        einsum's batch letters) keeps a cut on each of them, as XLA's
+        dot_general does (:meth:`_spread`): the batch takes a factor first
+        where that moves fewer bytes, and it takes the factors of operands
+        that were partial sums, whole on each device of them after the
+        all-reduce."""
         ia = 1 if name in ("aten.addmm", "aten.baddbmm") else 0
         a, b = args[ia], args[ia + 1]
+        summed = pls[ia].partial | pls[ia + 1].partial
         pa = self.reduce(a, pls[ia])
         pb = self.reduce(b, pls[ia + 1])
         roles = "MNBK" if a.dim() == 3 else "MNK"
         tb, tm, tn, tk = self._mm_plan(pa, pb, roles, b.numel() >= a.numel())
+        parts = pls[ia].parts or pls[ia + 1].parts
+        if parts and a.dim() == 3:
+            # a batch merged from several dims (an einsum's): the batch may
+            # take a factor first, where that moves fewer bytes
+            alt = self._mm_plan(pa, pb, "BMNK", b.numel() >= a.numel())
+            if alt != (tb, tm, tn, tk) and \
+                    self._plan_cost(a, b, pa, pb, alt) < self._plan_cost(a, b, pa, pb,
+                                                                         (tb, tm, tn, tk)):
+                tb, tm, tn, tk = alt
+        if tb and summed:
+            tb = self._spread(a.shape[0], tb[0], summed - {f for d in (tb[0], tm, tn, tk)
+                                                          for f, _ in d}, parts)
         ra = self._read(a, pa, Placement(tb + (tm, tk)))
         rb = self._read(b, pb, Placement(tb + (tk, tn)))
         o = Placement(tb + (tm, tn), _factors(tk))
@@ -554,6 +628,38 @@ class Propagator:
             read.insert(0, self._read(ins[0], self.reduce(ins[0], pls[0]),
                                       self._fit(ins[0], o.dims)))
         return read, [o]
+
+    def _plan_cost(self, a, b, pa, pb, plan) -> int:
+        """Bytes a matmul plan's operand reads move (a gather's block after
+        it, a move's target block; a finer cut is free)."""
+        tb, tm, tn, tk = plan
+        cost = 0
+        for t, p, want in ((a, pa, Placement(tb + (tm, tk))), (b, pb, Placement(tb + (tk, tn)))):
+            if p.dims == want.dims or p.finer(want):
+                continue
+            gathered, moved = self._moves(p, want)
+            if gathered:
+                cost += self.local_bytes(t, self.without(p, gathered))
+            if moved:
+                cost += self.local_bytes(t, want)
+        return cost
+
+    def _spread(self, n, entry, free, parts):
+        """(The batch dim's entry ``entry`` with the ``free`` factors added
+        on the first uncut dim of those a reshape merged into it (``parts``)
+        that they divide,), or unchanged where none is."""
+        parts = (parts or {}).get(0)
+        if not free or not parts:
+            return (entry,)
+        size = self.layout.size(free)
+        inner = n
+        for s in parts:
+            inner //= s
+            cut = any(inner <= blk < inner * s for _, blk in entry)
+            if not cut and s % size == 0:
+                new = [(f, blk * inner) for f, blk in self.layout.tile(s, sorted(free))]
+                return (_canon(set(entry) | set(new)),)
+        return (entry,)
 
     @staticmethod
     def _mm_plan(pa, pb, order, b_big=True):
@@ -722,6 +828,73 @@ class Propagator:
         read += [self._read(t, p, Placement(lookup), keep=False) for t, p in zip(ins[1:], ps[1:])]
         return read, [Placement(dims)]
 
+    def _index_rows(self, args, ins, pls, outs):
+        """x[..., i0, i1, ..., ...] (``aten.index``): a gather of rows. The
+        output's index dims keep the (joined) cut of the index tensors. A
+        factor that cuts an indexed dim of x is either gathered or kept as
+        a masked local lookup summed over it (a partial sum), whichever
+        moves fewer bytes: x's block gathered, or the output's block later
+        all-reduced (XLA's two ways to partition a gather whose operand is
+        cut along a sliced dim). x's other dims keep their cut, but for a
+        factor the index already uses, which x gives up."""
+        x, indices, o = args[0], args[1], outs[0]
+        at = [i for i, t in enumerate(indices) if t is not None]
+        k0, k1 = at[0], at[-1] + 1
+        ni = o.dim() - (x.dim() - (k1 - k0))
+        px = self.reduce(x, pls[0])
+        pis = [self.reduce(t, p) for t, p in zip(ins[1:], pls[1:])]
+        rows = self._join(o.shape[k0:k0 + ni], [p.dims for p in pis])
+        used = {f for d in rows for f, _ in d}
+        keep = [tuple(e for e in d if e[0] not in used) for d in px.dims]
+        over = {f for d in keep[k0:k1] for f, _ in d}
+        out = Placement(tuple(keep[:k0]) + rows + tuple(keep[k1:]))
+        if over:
+            gathered = Placement(tuple(() if k0 <= i < k1 else d for i, d in enumerate(keep)))
+            if self.local_bytes(x, gathered) < self.local_bytes(o, out):
+                keep, over = list(gathered.dims), set()
+            else:
+                out.partial = frozenset(over)
+        read = [self._read(x, px, Placement(tuple(keep)))]
+        read += [self._read(t, p, self._fit(t, rows)) for t, p in zip(ins[1:], pis)]
+        return read, [out]
+
+    def _index_put(self, args, ins, pls, outs):
+        """x[..., i0, i1, ..., ...] = v (``index_put``, in place or not;
+        ``accumulate`` adds): a write into x's block, which the output
+        keeps (into a cut indexed dim too, each device writing what lands
+        in its block). Into a fresh zero buffer the write stays local where
+        the index is: the index rows keep the cut of the index tensors (or
+        of v where the index is whole), each device writes its own rows,
+        and the buffer is a partial sum over the rows' factors and v's.
+        Into anything else the index and v are read whole on the rows."""
+        x, indices, v = args[0], args[1], ins[-1]
+        at = [i for i, t in enumerate(indices) if t is not None]
+        k0, k1 = at[0], at[-1] + 1
+        idx = ins[1:-1]
+        shape = torch.broadcast_shapes(*(t.shape for t in idx))
+        ni = len(shape)
+        fresh = self._fresh(x)
+        self._written(outs[0] if outs else x)
+        px, pv = pls[0], pls[-1]
+        if not fresh:
+            px, pv = self.reduce(x, px), self.reduce(v, pv)
+        pidx = [self.reduce(t, p) for t, p in zip(idx, pls[1:-1])]
+        off = x.dim() - (k1 - k0) + ni - v.dim()  # v's dims, aligned as the write's
+        rows = ((),) * ni
+        if fresh:
+            vrows = tuple(pv.dims[i - off] if i >= off and v.shape[i - off] != 1 else ()
+                          for i in range(k0, k0 + ni))
+            taken = px.used() | pv.partial
+            rows = tuple(tuple(e for e in d if e[0] not in taken)
+                         for d in self._join(shape, [p.dims for p in pidx] + [vrows]))
+        write = tuple(px.dims[:k0]) + rows + tuple(px.dims[k1:])
+        want_v = Placement(tuple(() if v.shape[i] == 1 else write[i + off]
+                                 for i in range(v.dim())), pv.partial if fresh else _NONE)
+        read = [px] + [self._read(t, p, self._fit(t, rows)) for t, p in zip(idx, pidx)]
+        read.append(self._read(v, pv, want_v))
+        partial = frozenset({f for d in rows for f, _ in d}) | want_v.partial
+        return read, [Placement(px.dims, partial)]
+
     def _slice_backward(self, name, args, ins, pls, outs):
         """The gradient of a slice (or select): the output's cut is the
         gradient's, the sliced dim cut anew for the whole size."""
@@ -741,7 +914,7 @@ class Propagator:
         x, p = ins[0], pls[0]
         o = outs[0] if outs else x
         if name in _SAME:
-            return [p], [Placement(p.dims, p.partial) if q.shape == x.shape else
+            return [p], [Placement(p.dims, p.partial, parts=p.parts) if q.shape == x.shape else
                          Placement.replicated(q.dim()) for q in outs]
         if name in ("aten.permute", "aten.transpose", "aten.t", "aten.numpy_T"):
             if name == "aten.permute":
@@ -752,7 +925,10 @@ class Propagator:
                 d0, d1 = args[1] % x.dim(), args[2] % x.dim()
                 perm = list(range(x.dim()))
                 perm[d0], perm[d1] = perm[d1], perm[d0]
-            return [p], [Placement(tuple(p.dims[i] for i in perm), p.partial, p.origin)]
+            parts = {j: p.parts[i] for j, i in enumerate(perm) if i in p.parts} if p.parts \
+                else None
+            return [p], [Placement(tuple(p.dims[i] for i in perm), p.partial, p.origin,
+                                   parts or None)]
         if name == "aten.expand":
             off = o.dim() - x.dim()
             dims = ((),) * off + tuple(() if x.shape[i] == 1 else p.dims[i]
@@ -783,15 +959,18 @@ class Propagator:
         plan = self._plans.get(key)
         if plan is None:
             plan = self._plans[key] = self._reshape_plan(*key)
-        gathered, dims = plan
+        gathered, dims, parts = plan
         if gathered:
             p = self._read(x, p, self.without(p, gathered), keep=False)
-        return [p], [Placement(dims, p.partial)]
+        return [p], [Placement(dims, p.partial, None if gathered else p.origin, parts)]
 
     def _reshape_plan(self, old, new, pdims):
         out: List[set] = [set() for _ in new]
         gathered: set = set()
+        parts = {}
         for go, gn in _reshape_groups(old, new):
+            if len(gn) == 1 and len(go) > 1:
+                parts[gn[0]] = tuple(old[i] for i in go)
             flat, inner = [], 1
             for i in reversed(go):
                 flat += [(f, b * inner) for f, b in pdims[i]]
@@ -809,4 +988,4 @@ class Propagator:
                         break
                 else:
                     gathered.add(f)
-        return frozenset(gathered), tuple(_canon(d) for d in out)
+        return frozenset(gathered), tuple(_canon(d) for d in out), parts or None

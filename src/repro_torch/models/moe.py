@@ -13,8 +13,9 @@ as the JAX package's ``models/moe.py``.
   tokens and its E/M experts: it routes its tokens, keeps only the
   assignments to its own experts, runs them, and ONE ``psum`` over
   "model" adds the expert shards' partial outputs. The capacity is per
-  (data shard x expert). Under autograd its backward is a second
-  ``shard_map`` region, the transpose of the first.
+  (data shard x expert). Under autograd the forward keeps each shard's
+  graph and the backward is a second ``shard_map`` region, the transpose
+  of the first, on those graphs.
 """
 from __future__ import annotations
 
@@ -123,9 +124,10 @@ def moe_ffn(p, x: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
 
 class _ShardedDispatch:
     """The per-shard bodies of ``moe_ffn_sharded`` over one mesh, and its
-    two ``shard_map`` regions: the forward, and the backward that
-    recomputes each shard's body and applies the transposes of the
-    forward's collectives (see ``moe_ffn_sharded``)."""
+    two ``shard_map`` regions: the forward, which keeps each shard's graph
+    when a backward will follow, and the backward, which takes each
+    shard's vector-Jacobian product on that graph and applies the
+    transposes of the forward's collectives (see ``moe_ffn_sharded``)."""
 
     def __init__(self, mesh, n_experts: int, top_k: int, capacity_factor: float,
                  norm_topk: bool):
@@ -162,9 +164,20 @@ class _ShardedDispatch:
         y = _experts(xf, wg, wu, wd, local_e, pos, (pos < C) & mine, gate_vals, C)
         return y.reshape(B_loc, T, d), _aux_loss(probs, expert_idx)
 
-    def forward(self, x3, router, wg, wu, wd):
+    def forward(self, x3, router, wg, wu, wd, graphs=None):
+        """The forward region. With ``graphs`` (a dict), each shard runs
+        its body with grad on, on leaves of its own blocks, and leaves
+        ``graphs[rank] = (leaves, y_part, aux_loc)`` for :meth:`backward`."""
+
         def body(comm, *blocks):
-            y, aux = self.local(comm, *blocks)
+            if graphs is None:
+                y, aux = self.local(comm, *blocks)
+            else:
+                leaves = [t.detach().requires_grad_() for t in blocks]
+                with torch.enable_grad():
+                    y, aux = self.local(comm, *leaves)
+                graphs[comm.rank] = (leaves, y, aux)
+                y, aux = y.detach(), aux.detach()
             y = comm.allreduce(y, axes="model", tag="model").wait()  # the ONLY traffic of y
             # aux is the same on every model shard (same tokens, same router):
             # reduce over the batch axes only (the mean over data shards)
@@ -175,16 +188,23 @@ class _ShardedDispatch:
                             out_specs=(self.spec_x, self.spec_aux))
         return fn(x3, router, wg, wu, wd)
 
-    def backward(self, x3, router, wg, wu, wd, dy, daux):
+    def backward(self, graphs, dy, daux):
+        """The backward region: each shard's VJP on the graph its forward
+        kept (no forward op runs again), then the collectives' transposes.
+        The VJPs free the graphs: a second backward finds none and raises."""
+        if len(graphs) != self.mesh.size:
+            raise RuntimeError(
+                "moe_ffn_sharded keeps each shard's graph for one backward, and a backward "
+                "through this output has already run (retain_graph=True, or a second "
+                "autograd.grad): run its forward again for another backward")
         everything = self.mesh.axis_names
 
-        def body(comm, xb, r, g, u, dn, dyb, da):
-            leaves = [t.detach().requires_grad_() for t in (xb, r, g, u, dn)]
-            # grad mode is the thread's own; and this thread drives its own VJP:
-            # on a card the autograd engine's device thread would run it, and
-            # that thread is the one waiting in _ShardedMoE.backward for us
-            with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
-                y, aux = self.local(comm, *leaves)
+        def body(comm, dyb, da):
+            leaves, y, aux = graphs.pop(comm.rank)
+            # this thread drives its own VJP: on a card the autograd engine's
+            # device thread would run it, and that thread is the one waiting
+            # in _ShardedMoE.backward for us
+            with torch.autograd.set_multithreading_enabled(False):
                 # y = psum_model(y_part): its transpose hands dy to every
                 # model shard. aux = psum_data(aux_loc) / n_data, and aux_loc
                 # is replicated over "model": each model shard takes 1/M of
@@ -199,26 +219,37 @@ class _ShardedDispatch:
                           for t in (gg, gu, gd))
             return gx, gr, gg, gu, gd
 
-        fn = self.shard_map(body, self.mesh,
-                            in_specs=(self.spec_x, *self.spec_w, self.spec_x, self.spec_aux),
+        fn = self.shard_map(body, self.mesh, in_specs=(self.spec_x, self.spec_aux),
                             out_specs=(self.spec_x, *self.spec_w))
-        return fn(x3, router, wg, wu, wd, dy, daux)
+        return fn(dy, daux)
 
 
 class _ShardedMoE(torch.autograd.Function):
-    """``moe_ffn_sharded`` under autograd: the forward region, and a
-    backward region that recomputes each shard's body from the saved
-    inputs (a remat of the region, not a saved routing)."""
+    """``moe_ffn_sharded`` under autograd. The forward region keeps each
+    shard's graph, held by the storage of a token tensor that the node
+    saves; the backward region takes the VJPs on those graphs, as JAX's
+    transpose of a ``shard_map`` reads the residuals its forward saved.
+    Under ``torch.utils.checkpoint`` the token is dropped with every other
+    saved tensor (and the graphs with it), and the recompute's token, with
+    the recompute's graphs, takes its place."""
 
     @staticmethod
-    def forward(ctx, dispatch: _ShardedDispatch, x3, router, wg, wu, wd):
+    def forward(ctx, dispatch: _ShardedDispatch, keep: bool, x3, router, wg, wu, wd):
         ctx.dispatch = dispatch
-        ctx.save_for_backward(x3, router, wg, wu, wd)
-        return dispatch.forward(x3, router, wg, wu, wd)
+        if not keep:
+            return dispatch.forward(x3, router, wg, wu, wd)
+        graphs: dict = {}
+        out = dispatch.forward(x3, router, wg, wu, wd, graphs)
+        token = x3.new_empty(0)
+        token.untyped_storage()._moe_graphs = graphs
+        ctx.save_for_backward(token)
+        return out
 
     @staticmethod
     def backward(ctx, dy, daux):
-        return (None, *ctx.dispatch.backward(*ctx.saved_tensors, dy, daux))
+        (token,) = ctx.saved_tensors
+        graphs = token.untyped_storage()._moe_graphs
+        return (None, None, *ctx.dispatch.backward(graphs, dy, daux))
 
 
 def moe_ffn_sharded(p, x3: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
@@ -234,17 +265,23 @@ def moe_ffn_sharded(p, x3: torch.Tensor, top_k: int, capacity_factor: float = 1.
     which start outside ``use_sharding_rules``: their hints are silent, as
     JAX's shard_map body has none.
 
-    Under autograd the backward is a second region on the same mesh, the
-    transpose JAX's ``shard_map`` derives for these specs: each shard
-    recomputes its body with grad on, takes the vector-Jacobian product of
-    its (y part, aux part) with ``torch.autograd.grad``, then sums x's
+    Under autograd the forward keeps each shard's graph, and the backward
+    is a second region on the same mesh, the transpose JAX's ``shard_map``
+    derives for these specs: each shard takes the vector-Jacobian product
+    of its (y part, aux part) on that graph with ``torch.autograd.grad``
+    (the forward's ops do not run again), then sums x's
     gradient over "model" (``grad_x``), the router's over every axis
     (``grad_router``) and each expert weight's over the batch axes
     (``grad_experts``, three a layer). Top-k indices carry no gradient: it
     flows through the gates and the router's probabilities, as in JAX.
+    The kept graphs serve one backward: a second backward through the same
+    output (``retain_graph=True``, a gradient penalty) raises; run the
+    forward again for it.
     """
     mesh = current_mesh()
     if mesh is None:
         raise RuntimeError("moe_ffn_sharded needs use_sharding_rules(..., mesh=...)")
     dispatch = _ShardedDispatch(mesh, p["router"].shape[-1], top_k, capacity_factor, norm_topk)
-    return _ShardedMoE.apply(dispatch, x3, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    args = (x3, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    keep = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    return _ShardedMoE.apply(dispatch, keep, *args)

@@ -164,9 +164,23 @@ class ModelApi:
                "vlm": _vlm.vlm_decode}.get(self.cfg.family, _dense.dense_lm_decode)
         return dec(params, token, cache, pos, self.cfg)
 
+    def decode_reads(self, name: str) -> bool:
+        """Whether ``decode`` reads its input ``name``: "token", "pos",
+        "params.<parameter>" or "cache.<field>". Each family's decode reads
+        them all but these, which JAX's ``jit`` prunes from the compiled
+        serve step: the SSM's position (its state holds no positions), the
+        hybrid cache's ``pos`` field (the step takes the position argument
+        and writes pos + 1 there) and the encoder-decoder's encoder
+        parameters (the cache holds the encoder's output)."""
+        return not any(name.startswith(u) for u in _DECODE_UNREAD.get(self.cfg.family, ()))
+
     def n_params(self) -> int:
         return count_params(self.layout)
 
+
+# the inputs (``ModelApi.decode_reads``'s names, or their prefixes) a family's
+# decode never reads
+_DECODE_UNREAD = {"ssm": ("pos",), "hybrid": ("cache.pos",), "encdec": ("params.enc_",)}
 
 _LAYOUTS = {"dense": _dense.dense_lm_layout, "moe": _moe.moe_lm_layout,
             "ssm": _xlstm.xlstm_layout, "hybrid": _mamba.zamba_layout,

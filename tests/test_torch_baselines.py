@@ -118,7 +118,10 @@ def test_method_and_engine_rules_match_jax():
             mod.plan(ops[1], engine="fused_iter", M=M)
     with pytest.raises(TypeError, match="does not accept"):
         repro_torch.plan(A, method="pcg", spmv_engine="cuda")
-    assert repro_torch.solver_names() == repro.solver_names()
+    # tests/test_plan.py registers "_plan_test_*" names in JAX's registries,
+    # which this test sees when it runs after that file in one process
+    jax_names = tuple(n for n in repro.solver_names() if not n.startswith("_plan_test"))
+    assert repro_torch.solver_names() == jax_names
     with pytest.raises(ValueError, match="already registered"):
         register_solver("pcg", lambda *a, **k: None)
     res = repro_torch.solve(TA, torch.from_numpy(b), method="chronopoulos", atol=1e-6)

@@ -14,14 +14,25 @@ import math
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
+from jax._src.interpreters import partial_eval as pe
 from jax.sharding import AbstractMesh
 
 import repro.configs as jconfigs
 import repro.launch.analytic as jan
 import repro.launch.sharding as jsh
 from repro.models import build_model as jbuild_model
-from repro.train.train_step import abstract_train_state as jabstract_train_state
+from repro.train import AdamWConfig as jAdamWConfig
+from repro.train import TrainConfig as jTrainConfig
+from repro.train import abstract_train_state as jabstract_train_state
+from repro.train import make_train_step as jmake_train_step
+from repro.train.optimizer import AdamWState as jAdamWState
+from repro.train.train_step import TrainState as jTrainState
+from repro_torch import configs
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
+from repro_torch.launch.sharding import tree_leaves
+from repro_torch.models import build_model
 
 
 def test_run_cell_whisper_train():
@@ -76,11 +87,13 @@ def test_sweep_classifies_every_cell_as_jax(tmp_path):
 
 
 def _jax_argument_bytes(arch, shape_name, multi, layout):
-    """What JAX's dry-run passes as arguments, as blocks of its shardings.
-    ``jit`` prunes the arguments a program never reads (``keep_unused``
-    is False), so the train step's ``labels`` and AdamW's ``prev_norm``
-    (read by the pipelined clip only) are no argument of the compiled
-    step (tests/test_torch_dryrun_partitioned.py holds the sum to
+    """What JAX's dry-run passes as arguments, as blocks of its shardings,
+    built as its ``_lower_cell`` builds the step program and its
+    ``in_shardings``, less what ``jit`` prunes (``keep_unused`` is False):
+    the inputs that ``dce_jaxpr`` finds the step's jaxpr never reads (as
+    ``jit``'s own pruning does), such as the train step's ``labels``
+    (tests/test_torch_dryrun_partitioned.py and
+    tests/test_torch_dryrun_families.py hold the sum to
     ``memory_analysis().argument_size_in_bytes``)."""
     mesh = (AbstractMesh((2, 16, 16), ("pod", "data", "model")) if multi
             else AbstractMesh((16, 16), ("data", "model")))
@@ -91,25 +104,27 @@ def _jax_argument_bytes(arch, shape_name, multi, layout):
     specs = api.input_specs(shape)
     sc = jsh.scalar_sharding(mesh)
     if shape.kind == "train":
-        state = jabstract_train_state(api)
-        read = {k: v for k, v in specs.items() if k != "labels"}
-        pairs = [(state.params, p_sh), (state.opt.m, p_sh), (state.opt.v, p_sh),
-                 ([state.opt.step, state.step], [sc, sc]),
-                 (read, jsh.batch_shardings(read, mesh, rules))]
+        step = jmake_train_step(api, jTrainConfig(
+            optimizer=jAdamWConfig(lr=1e-4, clip_norm=1.0), remat=True))
+        args = (jabstract_train_state(api), specs)
+        shardings = (jTrainState(params=p_sh, opt=jAdamWState(m=p_sh, v=p_sh, step=sc,
+                                                              prev_norm=sc), step=sc),
+                     jsh.batch_shardings(specs, mesh, rules))
     elif shape.kind == "prefill":
-        pairs = [(api.abstract_params(), p_sh), (specs, jsh.batch_shardings(specs, mesh, rules))]
+        step, args = api.prefill, (api.abstract_params(), specs)
+        shardings = (p_sh, jsh.batch_shardings(specs, mesh, rules))
     else:
-        c_sh = jsh.cache_shardings(specs["cache"], shape, mesh, rules, layout=layout)
-        tok = jsh.batch_shardings({"token": specs["token"]}, mesh, rules)["token"]
-        pairs = [(api.abstract_params(), p_sh), (specs["token"], tok), (specs["cache"], c_sh),
-                 (jax.ShapeDtypeStruct((), jnp.int32), sc)]
-    total = 0
-    for tree, shardings in pairs:
-        leaves, shards = jax.tree.leaves(tree), jax.tree.leaves(shardings)
-        assert len(leaves) == len(shards)
-        total += sum(math.prod(s.shard_shape(x.shape)) * jnp.dtype(x.dtype).itemsize
-                     for x, s in zip(leaves, shards))
-    return total
+        step = api.decode
+        args = (api.abstract_params(), specs["token"], specs["cache"],
+                jax.ShapeDtypeStruct((), jnp.int32))
+        shardings = (p_sh, jsh.batch_shardings({"token": specs["token"]}, mesh, rules)["token"],
+                     jsh.cache_shardings(specs["cache"], shape, mesh, rules, layout=layout), sc)
+    closed = jax.make_jaxpr(step)(*args)
+    _, used = pe.dce_jaxpr(closed.jaxpr, [True] * len(closed.jaxpr.outvars))
+    leaves, shards = jax.tree.leaves(args), jax.tree.leaves(shardings)
+    assert len(leaves) == len(shards) == len(used)
+    return sum(math.prod(s.shard_shape(x.shape)) * jnp.dtype(x.dtype).itemsize
+               for x, s, u in zip(leaves, shards, used) if u)
 
 
 @pytest.mark.parametrize("arch,shape,multi,layout", [
@@ -124,3 +139,43 @@ def test_argument_bytes_equal_jax_shardings(arch, shape, multi, layout):
     rec = dryrun.run_cell(arch, shape, multi, verbose=False, variant={"cache_layout": layout})
     assert rec["memory"]["argument_bytes_per_device"] == _jax_argument_bytes(
         arch, shape, multi, layout)
+
+
+class _Reads(torch.utils._python_dispatch.TorchDispatchMode):
+    """The storages the ops run under it read: every tensor argument but
+    the destination of an op that overwrites it whole."""
+
+    _OVERWRITE = {torch.ops.aten.fill_, torch.ops.aten.zero_, torch.ops.aten.copy_}
+
+    def __init__(self):
+        super().__init__()
+        self.read = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        flat = torch.utils._pytree.tree_leaves((args, kwargs or {}))
+        skip = flat[:1] if func.overloadpacket in self._OVERWRITE else []
+        self.read |= {t.untyped_storage()._cdata for t in flat
+                      if isinstance(t, torch.Tensor) and not any(t is u for u in skip)}
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "olmoe-1b-7b", "xlstm-1.3b", "zamba2-2.7b",
+                                  "whisper-tiny", "llama-3.2-vision-11b"])
+def test_decode_reads_what_the_model_declares(arch):
+    """``ModelApi.decode_reads``, which the dry run's serve step prunes by,
+    against what ``decode`` reads on the meta device, in each family: a
+    parameter or cache field is declared read exactly when an op reads it
+    (a declared-unread position goes in as None, which nothing can read)."""
+    api = build_model(configs.reduced(configs.get_config(arch)))
+    params, specs = api.abstract_params(), api.input_specs(ShapeConfig("s", 16, 2, "decode"))
+    cache = specs["cache"]
+    storage = lambda t: t.untyped_storage()._cdata  # noqa: E731
+    mode = _Reads()
+    with torch.no_grad(), mode:
+        api.decode(params, specs["token"], cache, 15 if api.decode_reads("pos") else None)
+    assert api.decode_reads("token") and storage(specs["token"]) in mode.read
+    for k, t in params.named_parameters():
+        assert api.decode_reads("params." + k) == (storage(t) in mode.read), k
+    for f, t in zip(cache._fields, cache):
+        read = any(storage(x) in mode.read for x in tree_leaves(t))
+        assert api.decode_reads("cache." + f) == read, f

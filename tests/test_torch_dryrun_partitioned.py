@@ -3,7 +3,8 @@ step program counted at one device's share, ``launch/spmd.py``'s
 placements propagated op by op) against JAX's program compiled on a
 2 x 4 ("data", "model") mesh of 8 forced CPU devices.
 
-One module-scoped fixture runs one JAX subprocess (``XLA_FLAGS`` with 8
+One module-scoped fixture runs one JAX subprocess
+(``dryrun_parity.start_jax``: ``XLA_FLAGS`` with 8
 host devices and ``JAX_PLATFORMS=cpu`` set before JAX starts; JAX's dry
 run module is imported only there, after the backend holds its 8
 devices) that lowers five cells with JAX's ``_lower_cell`` at batch 8 x
@@ -27,18 +28,13 @@ tensor whole on each device, a row-parallel matmul's all-reduce over
 "model", a data-sharded loss's all-reduce of the replicated weight's
 gradient over "data"; and a 1 x 1 mesh gives the global count.
 """
-import json
-
-import numpy as np
 import pytest
 import torch
 
-from conftest import run_multidevice
-
+import dryrun_parity as parity
 from repro_torch import configs
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.roofline import analyze_program, wire_bytes
 from repro_torch.launch.sharding import DEFAULT_RULES, NamedSharding, P, make_resolver, \
     sharded_bytes
@@ -50,41 +46,8 @@ SEQ, BATCH = 256, 8
 CELLS = [("whisper-tiny", False, "train"), ("internlm2-1.8b", False, "decode"),
          ("internlm2-1.8b", True, "train"), ("whisper-tiny", True, "train"),
          ("whisper-tiny", True, "prefill")]
-KINDS = {"allreduce": "all-reduce", "allgather": "all-gather", "alltoall": "all-to-all",
-         "shift": "collective-permute"}
-
-_JAX_RUN = """
-import json, os
-os.environ["JAX_PLATFORMS"] = "cpu"
-import jax
-assert jax.device_count() == 8, jax.device_count()
-from repro import configs
-from repro.compat import AxisType, make_mesh
-from repro.configs.base import ShapeConfig
-from repro.launch import dryrun  # sets XLA_FLAGS for later processes; these 8 devices stay
-from repro.launch.roofline import analyze_hlo
-from repro.launch.sharding import DEFAULT_RULES
-mesh = make_mesh((2, 4), ("data", "model"), devices=jax.devices()[:8],
-                 axis_types=(AxisType.Auto,) * 2)
-out = []
-for arch, reduced, kind in {cells!r}:
-    cfg = configs.get_config(arch)
-    if reduced:
-        cfg = configs.reduced(cfg)
-    lowered, _ = dryrun._lower_cell(cfg, ShapeConfig("s", {seq}, {batch}, kind), mesh,
-                                    DEFAULT_RULES(), {{}})
-    compiled = lowered.compile()
-    ma = compiled.memory_analysis()
-    hl = analyze_hlo(compiled.as_text())
-    out.append(dict(flops=hl.flops, wire=hl.wire_bytes, by_kind_bytes=hl.coll_by_kind_bytes,
-                    args=int(ma.argument_size_in_bytes), temp=int(ma.temp_size_in_bytes)))
-print("JSON" + json.dumps(out))
-"""
-
-
-def _mesh(shape=(2, 4)):
-    return Mesh(np.array(["meta"] * (shape[0] * shape[1]), dtype=object).reshape(shape),
-                ("data", "model"))
+KINDS = parity.KINDS
+_mesh = parity.meta_mesh
 
 
 def _cfg(arch, reduced):
@@ -94,10 +57,8 @@ def _cfg(arch, reduced):
 
 @pytest.fixture(scope="module")
 def jax_cells():
-    out = run_multidevice(_JAX_RUN.format(cells=CELLS, seq=SEQ, batch=BATCH), n_devices=8,
-                          timeout=300)
-    line = next(ln for ln in out.splitlines() if ln.startswith("JSON"))
-    return json.loads(line[4:])
+    proc = parity.start_jax([(a, r, k, {}) for a, r, k in CELLS], seq=SEQ, batch=BATCH)
+    return parity.collect(proc, timeout=300)
 
 
 @pytest.mark.parametrize("i", range(len(CELLS)),
