@@ -35,7 +35,7 @@ figures are those of the program its partitioner made: ``_trace_cell``
 (JAX's ``_lower_cell``) runs the step program on ``meta`` under the census
 of ``launch/roofline.analyze_program`` with the arguments' shardings, and
 ``launch/spmd.py`` propagates a placement to every tensor (the arguments'
-shardings, the activation hints, a parameter's for its gradient, and a
+shardings, the activation hints, a tensor's for its gradient, and a
 rule table of aten ops), so every op is counted at the block one device
 holds and every reshard the placements imply is a collective:
 
@@ -66,7 +66,7 @@ holds and every reshard the placements imply is a collective:
 On the 2 x 4 mesh of 8 CPU devices the FLOPs and argument bytes equal
 JAX's compiled program's, and the wire and temp bytes lie within 2x of
 them, in every family (tests/test_torch_dryrun_partitioned.py and
-tests/test_torch_dryrun_families.py, which hold four FLOP gaps that are
+tests/test_torch_dryrun_families.py, which hold five FLOP gaps that are
 the reference program's own to the byte; PERF.md).
 ``hlo_raw_cost_analysis`` has no counterpart and is left out.
 

@@ -27,7 +27,10 @@ do:
   over every op that is not a view or an allocation. The op boundary is
   eager PyTorch's traffic model, as the fusion boundary is XLA's;
 * the peak of live storages: each storage an op creates counts from its
-  creation until its last reference goes; a view adds nothing;
+  creation until its last reference goes; a view adds nothing (with
+  placements, a storage cut finer by a later read is held at the finer
+  block, but for an all-reduce's result, which XLA's CPU program keeps
+  whole and slices: it forms no reduce-scatter);
 * the collectives of the ``shard_map`` regions on a given mesh (counted
   by ``core.comm``): their count, and their wire bytes a device by
   ``analyze_hlo``'s ring factors (2 (n - 1) / n of the payload for an
@@ -40,6 +43,28 @@ at the block one device holds (FLOPs by the same formulas on the local
 shapes, bytes and live storages at local sizes), and the collectives the
 placements imply are counted beside the regions'. A ``shard_map`` region
 is one device's share already: its ops count once a shard, at 1/n each.
+
+A gradient takes its forward tensor's placement, as the partitioner gives
+a cotangent its primal's sharding. The hook goes on the forward tensor
+when an op on the home thread first reads it, after that op's rule: a
+``TorchDispatchMode`` sees tensors below autograd, so an op's outputs have
+no ``grad_fn`` yet when the census records them, but its inputs do. (A
+``TorchFunctionMode`` would see the outputs, at a Python call for every
+torch function and none for the aten ops a composite one runs; the
+backward nodes' saved tensors miss every tensor autograd saves nothing
+of.) Each tensor that autograd tracks and the placements cut gets one
+tensor hook holding its placement, taken then: its storage may be freed
+before the gradient comes. The gradient, when it comes, is reduced if it
+is a partial sum, then takes that placement (``Propagator.constrain``: a
+coarser gradient is cut by a local slice, and the matmul that made it is
+recounted at the finer block) unless it is cut finer already (a cut that
+a later read gave a view of the tensor, an einsum's heads, say, is not
+the tensor's own). A replicated tensor gets no hook, nor does any read in
+the backward (``torch._C._current_graph_task_id``), so the forward that
+``torch.utils.checkpoint`` reruns there hooks nothing twice, and the hooks
+keep the placements the first forward gave. Ops in a ``shard_map`` region
+or on another thread take no hint. An argument's gradient takes the argument's
+placement through a hook of :func:`analyze_program`'s own.
 
 Loops need no trip-count fit: eager code runs every iteration.
 """
@@ -57,7 +82,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from .sharding import NamedSharding
-from .spmd import _FACTORY, Propagator
+from .spmd import _FACTORY, Placement, Propagator
 
 __all__ = ["HW", "roofline_terms", "ProgramAnalysis", "analyze_program", "wire_bytes"]
 
@@ -111,6 +136,7 @@ class ProgramAnalysis:
     bytes_by_op: Dict[str, float] = field(default_factory=dict)
     ops_by_class: Dict[str, int] = field(default_factory=dict)
     n_ops: int = 0
+    grad_hooks: int = 0           # forward tensors whose gradient took their placement
     devices: set = field(default_factory=set)  # device types the ops ran on
 
 
@@ -193,6 +219,7 @@ class _Census(TorchDispatchMode):
         # a factory's storage (zeros, empty, ...) counts from its first reader,
         # at the cut the placements give it by then (as XLA materializes it)
         self._pending: Dict[int, int] = {}
+        self._hooked: Dict[int, weakref.ref] = {}  # forward tensors whose gradient is hooked
         if spmd is not None:
             spmd.on_refine = self._shrink
 
@@ -225,6 +252,32 @@ class _Census(TorchDispatchMode):
         if self._propagating():
             with self._lock:
                 self.spmd.constrain(t, pl)
+
+    def _forward_hint(self, g: torch.Tensor, want) -> None:
+        """A forward tensor's gradient ``g`` arrived: a partial sum is
+        reduced, then ``g`` takes the tensor's placement ``want`` unless it
+        is cut finer already."""
+        if self._propagating():
+            with self._lock:
+                sp = self.spmd
+                if not want.finer(sp.reduce(g, sp.get(g))):
+                    sp.constrain(g, want)
+
+    def _hook_grads(self, ins) -> None:
+        """Hook the gradient of each input the forward made that autograd
+        tracks and the placements cut, once a tensor, with its placement
+        after this op read it (see the module docstring)."""
+        if not torch.is_grad_enabled() or torch._C._current_graph_task_id() != -1:
+            return  # no graph, the backward, or the forward remat reruns in it
+        sp = self.spmd
+        for t in ins:
+            if not t.requires_grad or t.is_leaf or id(t) in self._hooked:
+                continue  # no gradient, a leaf (an argument's own hook), or hooked
+            pl = sp.get(t)
+            if pl.used():  # a replicated tensor's gradient needs no hint
+                self._hooked[id(t)] = weakref.ref(t, lambda _, i=id(t): self._hooked.pop(i, None))
+                self.out.grad_hooks += 1
+                t.register_hook(lambda g, want=Placement(pl.dims): self._forward_hint(g, want))
 
     def enter_region(self, mesh, args, in_specs) -> None:
         if self._propagating() and mesh.shape == self.spmd.layout.mesh.shape:
@@ -262,6 +315,7 @@ class _Census(TorchDispatchMode):
             if self._propagating():
                 with self._lock:
                     local = self.spmd.rule(op.name, func, args, kwargs, ins, outs)
+                    self._hook_grads(ins)
             else:
                 weight = 1.0 / self._region_size if self._region_size > 1 else 1.0
         if local is None:
@@ -400,8 +454,8 @@ def analyze_program(fn: Callable, *args, mesh=None, shardings=None, **kwargs) ->
     ``shardings``, [(tensor, NamedSharding)] of the program's arguments
     on ``mesh``, makes every figure one device's share (the module
     docstring); the gradient of an argument that requires grad takes the
-    argument's placement. On a mesh of one device every figure is the
-    global count."""
+    argument's placement, and that of a forward tensor its own. On a mesh
+    of one device every figure is the global count."""
     before_n = Counter(mesh.counts) if mesh is not None else Counter()
     before_b = Counter(mesh.coll_bytes) if mesh is not None else Counter()
     spmd = None

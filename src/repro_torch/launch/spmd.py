@@ -20,8 +20,10 @@ unpacks is the same block). Placements enter from three places:
   batch input and cache leaf;
 * hints: ``models.common.shard_hint`` hands the rules' sharding to
   :meth:`Propagator.hint`, JAX's ``with_sharding_constraint``; the
-  gradient of an argument that requires grad takes the argument's
-  placement, as the partitioner gives a cotangent its primal's sharding;
+  gradient of an argument that requires grad, or of a tensor the forward
+  made and the placements cut, takes that tensor's placement, as the
+  partitioner gives a cotangent its primal's sharding (the census's
+  hooks, ``launch/roofline.py``);
 * the rule table of :meth:`Propagator.rule`, one aten op at a time:
   pointwise ops with broadcasting; ``mm``/``bmm``/``addmm``/``baddbmm``
   (a contraction over a sharded dim gives a partial sum); reductions (a
@@ -283,6 +285,7 @@ class Propagator:
         self.flops_refund = 0.0  # FLOPs of matmuls recounted at a finer block
         self.bytes_refund = 0.0
         self._zeros: Dict[int, set] = {}  # storage -> geometries of unwritten zero factories
+        self._reduced: set = set()  # storages an all-reduce wrote whole
 
     # -- the store ------------------------------------------------------
     def get(self, t: torch.Tensor) -> Placement:
@@ -308,6 +311,7 @@ class Propagator:
     def forget(self, storage: int) -> None:
         self._pl.pop(storage, None)
         self._zeros.pop(storage, None)
+        self._reduced.discard(storage)
 
     def _fresh(self, t: torch.Tensor) -> bool:
         """``t`` is a zero factory's output nothing has written into yet."""
@@ -358,6 +362,7 @@ class Propagator:
         out = Placement(pl.dims)
         self._coll("allreduce", t, out, pl.partial)
         self.set(t, out)
+        self._reduced.add(_key(t)[0])
         return out
 
     def reshard(self, t, pl: Placement, target: Placement) -> Placement:
@@ -413,7 +418,9 @@ class Propagator:
         is a matmul's output or a reshape or permutation of it, the matmul
         is recounted at the finer block (the added factors were whole in
         both its operands), once for each factor however many views of the
-        output are cut by it."""
+        output are cut by it. The census holds ``t``'s storage at the finer
+        block, but for an all-reduce's result, which stays whole (XLA's
+        CPU program slices the sum; it forms no reduce-scatter)."""
         new = Placement(target.dims, pl.partial)
         added = {f for h, w in zip(pl.dims, target.dims) for f, _ in set(w) - set(h)}
         extra = self.layout.size(added)
@@ -428,7 +435,7 @@ class Propagator:
             self.flops_refund += cut
             self.bytes_refund += cut_b
         new.origin = rec
-        if extra > 1 and self.on_refine is not None:
+        if extra > 1 and self.on_refine is not None and _key(t)[0] not in self._reduced:
             self.on_refine(t, extra)
         self.set(t, new)
         return new

@@ -77,6 +77,27 @@ for arch, reduced, kind, variant in cells:
 """
 
 
+_PORT_RUN = """
+import json, sys
+sys.path.insert(0, sys.argv[2])
+import dryrun_parity as parity
+cells, shape, seq, batch = json.loads(sys.argv[1])
+for arch, reduced, kind, variant in cells:
+    print("JSON" + json.dumps(parity.port_cell(arch, reduced, kind, variant, tuple(shape), seq,
+                                               batch)), flush=True)
+"""
+
+
+def start_port(cells, shape=(2, 4), seq=256, batch=8) -> subprocess.Popen:
+    """:func:`port_cell` of ``cells`` in a subprocess, so that a slow cell
+    traces beside the others; its figures come with :func:`collect`."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC
+    arg = json.dumps([[list(c) for c in cells], list(shape), seq, batch])
+    return subprocess.Popen([sys.executable, "-c", _PORT_RUN, arg, HERE], env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
 def start_jax(cells, shape=(2, 4), seq=256, batch=8, n_devices=8,
               hlo_dir=None) -> subprocess.Popen:
     """Start JAX's side for ``cells`` [(arch, reduced, kind, variant)]; its
@@ -96,15 +117,17 @@ def start_jax(cells, shape=(2, 4), seq=256, batch=8, n_devices=8,
 
 
 def collect(proc: subprocess.Popen, timeout: float = 300) -> list:
-    """JAX's figures of each cell, in order (AssertionError if it failed)."""
+    """The figures of each cell of a :func:`start_jax` or :func:`start_port`
+    subprocess, in order (AssertionError if it failed)."""
     try:
         out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         proc.kill()
         out, err = proc.communicate()
-        raise AssertionError(f"JAX's side ran over {timeout} s\n{err[-4000:]}")
+        raise AssertionError(f"the subprocess ran over {timeout} s\n{err[-4000:]}")
     if proc.returncode != 0:
-        raise AssertionError(f"JAX's side failed (rc={proc.returncode})\n{out}\n{err[-4000:]}")
+        raise AssertionError(f"the subprocess failed (rc={proc.returncode})\n{out}\n"
+                             f"{err[-4000:]}")
     return [json.loads(ln[4:]) for ln in out.splitlines() if ln.startswith("JSON")]
 
 

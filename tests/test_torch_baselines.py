@@ -24,6 +24,18 @@ from repro_torch.core import block_jacobi
 from repro_torch.plan import register_solver
 
 KW = dict(M="jacobi", atol=1e-6, maxiter=60)
+# JAX's built-in solver names, read when this file is imported. Pytest
+# collects every test file (on each xdist worker too) before it runs any
+# test, and no test file registers a solver at import, so the names that
+# other files' tests register in JAX's process-global registry
+# (tests/test_plan.py's "_plan_test_*", tests/test_unified_solver.py's
+# "diag") are not among them, whichever file runs first.
+JAX_BUILTIN_NAMES = repro.solver_names()
+
+
+def _assert_port_has_jax_builtin_names():
+    """The port's solver names are exactly JAX's built-in ones."""
+    assert repro_torch.solver_names() == JAX_BUILTIN_NAMES
 
 
 def _forms(fmt):
@@ -118,11 +130,27 @@ def test_method_and_engine_rules_match_jax():
             mod.plan(ops[1], engine="fused_iter", M=M)
     with pytest.raises(TypeError, match="does not accept"):
         repro_torch.plan(A, method="pcg", spmv_engine="cuda")
-    # tests/test_plan.py registers "_plan_test_*" names in JAX's registries,
-    # which this test sees when it runs after that file in one process
-    jax_names = tuple(n for n in repro.solver_names() if not n.startswith("_plan_test"))
-    assert repro_torch.solver_names() == jax_names
+    _assert_port_has_jax_builtin_names()
     with pytest.raises(ValueError, match="already registered"):
         register_solver("pcg", lambda *a, **k: None)
     res = repro_torch.solve(TA, torch.from_numpy(b), method="chronopoulos", atol=1e-6)
     assert bool(res.converged)
+
+
+def test_solver_names_hold_whatever_jax_registered_since():
+    """A name registered in JAX's registry by another test, before or
+    after this comparison, does not move it (a filter by name prefix
+    failed on tests/test_unified_solver.py's "diag")."""
+    from repro.plan import _SOLVERS as jax_registry
+
+    name = "_names_probe"
+    assert name not in JAX_BUILTIN_NAMES and "pcg" in JAX_BUILTIN_NAMES
+    _assert_port_has_jax_builtin_names()
+    repro.register_solver(name, lambda *a, **k: None)
+    try:
+        assert name in repro.solver_names()
+        _assert_port_has_jax_builtin_names()
+    finally:
+        del jax_registry[name]
+    assert name not in repro.solver_names()
+    _assert_port_has_jax_builtin_names()

@@ -25,7 +25,10 @@ each as JSON. The port traces the same cells on a 2 x 4 meta mesh:
 
 Toy programs on a 2 x 4 meta mesh, counted by hand: a model-replicated
 tensor whole on each device, a row-parallel matmul's all-reduce over
-"model", a data-sharded loss's all-reduce of the replicated weight's
+"model", an all-reduced sum that stays whole when a later read cuts it
+finer, a partial gradient all-reduced where it reaches its forward tensor,
+a gradient that keeps a cut finer than its forward tensor's, a
+data-sharded loss's all-reduce of the replicated weight's
 gradient over "data"; and a 1 x 1 mesh gives the global count.
 """
 import pytest
@@ -106,6 +109,68 @@ def test_row_parallel_matmul_all_reduces_over_model():
     out = 4 * 32 * 4  # the (4, 32) f32 block of the output, summed over "model"
     assert census.coll_by_kind_count == {"allreduce": 1}
     assert census.wire_bytes == wire_bytes("allreduce", out, 4) == 2 * out * 3 / 4
+
+
+def test_all_reduced_value_stays_whole_when_read_cut_finer():
+    x = torch.empty((8, 16), device="meta")
+    w = torch.empty((16, 32), device="meta")
+    v = torch.empty((32, 8), device="meta")
+    mesh, pl = _place((x, (None, "model")), (w, ("model", None)), (v, ("model", None)))
+    census = analyze_program(lambda: (x @ w) @ v, mesh=mesh, shardings=pl)
+    # x @ w is a partial sum over "model", all-reduced whole onto each
+    # device; y @ v then reads its columns cut over "model" (a local slice,
+    # (8, 32) x (32, 8) a quarter). XLA's CPU program slices the all-reduce's
+    # whole result rather than forming a reduce-scatter, so the (8, 32) f32
+    # sum stays live whole beside the (8, 8) product
+    y, out = 8 * 32 * 4, 8 * 8 * 4
+    assert census.flops == 2 * 8 * 4 * 32 + 2 * 8 * 8 * 8
+    assert census.coll_by_kind_count == {"allreduce": 1}
+    assert census.wire_bytes == wire_bytes("allreduce", y, 4)
+    assert census.peak_live_bytes == y + out
+
+
+def test_partial_gradient_is_reduced_where_it_reaches_its_tensor():
+    x = torch.empty((8, 16), device="meta", requires_grad=True)
+    w1 = torch.empty((16, 32), device="meta")
+    w2 = torch.empty((32, 16), device="meta")
+    mesh, pl = _place((x, ("data",)), (w1, (None, "model")), (w2, ("model", None)))
+
+    def step():  # a Megatron MLP over a = 2x, the loss's sum left unreduced
+        a = x * 2
+        torch.autograd.grad(((a @ w1).relu() @ w2).sum(), [x])
+
+    census = analyze_program(step, mesh=mesh, shardings=pl)
+    # a's gradient, dh @ w1^T, is a partial sum over "model" (the
+    # contraction cut): all-reduced where it reaches a, which is whole on
+    # "model", as Megatron's g operator does; the (4, 16) f32 block
+    assert census.coll_by_kind_count == {"allreduce": 1}
+    assert census.wire_bytes == wire_bytes("allreduce", 4 * 16 * 4, 4)
+
+
+def test_gradient_cut_finer_than_its_tensor_keeps_its_cut():
+    b, l, h, k = 8, 32, 4, 16
+    x = torch.empty((b, l, 64), device="meta", requires_grad=True)
+    w = torch.empty((64, h * k), device="meta", requires_grad=True)
+    mesh, pl = _place((x, ("data", None, "model")), (w, ("model", None)))
+
+    def step():
+        q = (x @ w).reshape(b, l, h, k)
+        s = torch.einsum("blhk,bmhk->blmh", q, q)
+        torch.autograd.grad(s.sum(), [x, w])
+
+    census = analyze_program(step, mesh=mesh, shardings=pl)
+    # x @ w is a partial sum over "model", all-reduced once for each of
+    # the einsum's two reads, whose merged batch then cuts h over "model"
+    # (a local slice of the views, not of x @ w's own data-only
+    # placement). Its gradient comes from the einsum cut over "model" on
+    # h, finer than x @ w: it keeps that cut, where taking x @ w's
+    # placement would all-gather it; it is gathered once, where
+    # dx = dq @ w^T keeps x's "model" cut on its output and reads dq
+    # whole on the contraction (a (b/2 * l, h * k) f32 block)
+    block = (b // 2) * l * h * k * 4
+    assert census.coll_by_kind_count == {"allreduce": 2, "allgather": 1}
+    assert census.coll_by_kind_bytes == {"allreduce": 2 * wire_bytes("allreduce", block, 4),
+                                         "allgather": wire_bytes("allgather", block, 4)}
 
 
 def test_data_sharded_loss_all_reduces_the_weight_gradient_over_data():
