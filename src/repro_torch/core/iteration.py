@@ -53,6 +53,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..obs.trace import span as _span
 from .preconditioners import identity
 from .reduce import Reducer, make_reducer
 
@@ -272,8 +273,9 @@ class Convergence:
     Holds the threshold ``max(atol, rtol * norm0)``, the NaN-tailed
     history, the last norm while active, the iteration counter and the
     ``active`` flag, all on the device. :meth:`poll` is the one host sync,
-    once per ``POLL_EVERY`` steps; :meth:`record` books step k without a
-    sync, so a step after convergence changes nothing that is returned.
+    once per ``POLL_EVERY`` steps (``polls`` counts them, each under a
+    ``pipecg.poll`` span); :meth:`record` books step k without a sync, so
+    a step after convergence changes nothing that is returned.
     For a batch ``norm0`` is (k,): every field gains the lane axis (the
     history is (k, maxiter+1)) and the loop runs while any lane is active.
     """
@@ -292,10 +294,15 @@ class Convergence:
         self.iterations = torch.zeros(norm0.shape, dtype=torch.int32, device=dev)
         self.active = norm0 > self.thresh
         self.steps = 0
+        self.polls = 0
 
     def poll(self, k: int) -> bool:
         """True when the loop may stop before step k (syncs every POLL_EVERY steps)."""
-        return k % POLL_EVERY == 0 and not bool(self.active.any())
+        if k % POLL_EVERY:
+            return False
+        self.polls += 1
+        with _span("pipecg.poll"):
+            return not bool(self.active.any())
 
     def record(self, k: int, norm_new: torch.Tensor) -> None:
         """Book step k's norm if the solve was still active, then update the flag."""
@@ -341,8 +348,10 @@ def run_pipecg(
     the loop hands them is its own buffer. A reducer with a ``post``
     method (a mesh reducer, ``core.reduce``) is split in two: the loop
     posts the dot partials before the SPMV of line 22 and waits for their
-    sums after it, so the reduction overlaps the SPMV. Returns
-    ``(iterations, x, residual_norm, converged, history, steps)``.
+    sums after it, so the reduction overlaps the SPMV. The set-up runs
+    under a ``pipecg.init`` span and the steps under ``pipecg.loop``
+    (attributes ``steps``, ``polls``). Returns ``(iterations, x,
+    residual_norm, converged, history, steps)``.
     """
     if reducer is None:
         reducer = make_reducer("local")
@@ -353,69 +362,73 @@ def run_pipecg(
     dtype = b.dtype
 
     # init (Alg. 2 lines 1-3)
-    r = b - spmv_fn(x0)
-    u = pc_fn(r)
-    w = spmv_fn(u)
-    gamma, delta, nn = reducer(dot_f32(r, u), dot_f32(w, u), dot_f32(u, u))
-    conv = Convergence(torch.sqrt(nn), atol, rtol, maxiter)
-    m = pc_fn(w)
-    n = None if fused_spmv else spmv_fn(m)
-    z, q, s, p = (torch.zeros_like(b) for _ in range(4))
-    x = x0.clone()  # kernel cores update x in place; the caller's x0 stays
-    m_spare = torch.empty_like(m) if fused_spmv else None
-    gamma_prev = alpha_prev = None
+    with _span("pipecg.init"):
+        r = b - spmv_fn(x0)
+        u = pc_fn(r)
+        w = spmv_fn(u)
+        gamma, delta, nn = reducer(dot_f32(r, u), dot_f32(w, u), dot_f32(u, u))
+        conv = Convergence(torch.sqrt(nn), atol, rtol, maxiter)
+        m = pc_fn(w)
+        n = None if fused_spmv else spmv_fn(m)
+        z, q, s, p = (torch.zeros_like(b) for _ in range(4))
+        x = x0.clone()  # kernel cores update x in place; the caller's x0 stays
+        m_spare = torch.empty_like(m) if fused_spmv else None
+        gamma_prev = alpha_prev = None
 
-    for k in range(maxiter):
-        if conv.poll(k):
-            break
-        # scalars (lines 5-9) — consume the previous iteration's dots. While
-        # active, the device counter i equals k, so the branch is k's.
-        if k > 0:
-            beta = gamma / gamma_prev
-            alpha = gamma / (delta - beta * gamma / alpha_prev)
-        else:
-            beta = torch.zeros_like(gamma)
-            alpha = gamma / delta
-        a, bt = alpha.to(dtype), beta.to(dtype)
-        if fused_spmv:
-            z, q, s, p, x, r, u, w, m_new, (g_p, d_p, n_p) = core(
-                z, q, s, p, x, r, u, w, m, m_spare, inv_diag, a, bt, conv.active
-            )
-            m, m_spare = m_new, m
-        else:
-            z, q, s, p, x, r, u, w, m, (g_p, d_p, n_p) = core(
-                z, q, s, p, x, r, u, w, n, m, inv_diag, a, bt, conv.active
-            )
-            if inv_diag is None:
-                m = pc_fn(w)  # general (non-fused) preconditioner
-        if post is None:
-            gamma_new, delta_new, uu = reducer(g_p, d_p, n_p)
-        else:
-            wait = post(g_p, d_p, n_p)  # the sums are needed after the SPMV only
-        if not fused_spmv:
-            n = spmv_fn(m, active=conv.active)  # line 22
-        if post is not None:
-            gamma_new, delta_new, uu = wait()
-        norm_new = torch.sqrt(uu)
-
-        if replace_every > 0 and k > 0 and (k + 1) % replace_every == 0:
-            # Residual replacement (Cools & Vanroose): re-derive every
-            # auxiliary vector from its definition to arrest the roundoff
-            # drift of the recurrences. x and p are unchanged by it.
-            r = b - replace_spmv_fn(x)
-            u = pc_fn(r)
-            w = replace_spmv_fn(u)
-            s = replace_spmv_fn(p)
-            q = pc_fn(s)
-            z = replace_spmv_fn(q)
-            m = pc_fn(w)
+    with _span("pipecg.loop") as loop:
+        for k in range(maxiter):
+            if conv.poll(k):
+                break
+            # scalars (lines 5-9) — consume the previous iteration's dots. While
+            # active, the device counter i equals k, so the branch is k's.
+            if k > 0:
+                beta = gamma / gamma_prev
+                alpha = gamma / (delta - beta * gamma / alpha_prev)
+            else:
+                beta = torch.zeros_like(gamma)
+                alpha = gamma / delta
+            a, bt = alpha.to(dtype), beta.to(dtype)
+            if fused_spmv:
+                z, q, s, p, x, r, u, w, m_new, (g_p, d_p, n_p) = core(
+                    z, q, s, p, x, r, u, w, m, m_spare, inv_diag, a, bt, conv.active
+                )
+                m, m_spare = m_new, m
+            else:
+                z, q, s, p, x, r, u, w, m, (g_p, d_p, n_p) = core(
+                    z, q, s, p, x, r, u, w, n, m, inv_diag, a, bt, conv.active
+                )
+                if inv_diag is None:
+                    m = pc_fn(w)  # general (non-fused) preconditioner
+            if post is None:
+                gamma_new, delta_new, uu = reducer(g_p, d_p, n_p)
+            else:
+                wait = post(g_p, d_p, n_p)  # the sums are needed after the SPMV only
             if not fused_spmv:
-                n = replace_spmv_fn(m)
-            gamma_new, delta_new, nn = reducer(dot_f32(r, u), dot_f32(w, u), dot_f32(u, u))
-            norm_new = torch.sqrt(nn)
+                n = spmv_fn(m, active=conv.active)  # line 22
+            if post is not None:
+                gamma_new, delta_new, uu = wait()
+            norm_new = torch.sqrt(uu)
 
-        conv.record(k, norm_new)
-        gamma, gamma_prev, delta, alpha_prev = gamma_new, gamma, delta_new, alpha
+            if replace_every > 0 and k > 0 and (k + 1) % replace_every == 0:
+                # Residual replacement (Cools & Vanroose): re-derive every
+                # auxiliary vector from its definition to arrest the roundoff
+                # drift of the recurrences. x and p are unchanged by it.
+                r = b - replace_spmv_fn(x)
+                u = pc_fn(r)
+                w = replace_spmv_fn(u)
+                s = replace_spmv_fn(p)
+                q = pc_fn(s)
+                z = replace_spmv_fn(q)
+                m = pc_fn(w)
+                if not fused_spmv:
+                    n = replace_spmv_fn(m)
+                gamma_new, delta_new, nn = reducer(dot_f32(r, u), dot_f32(w, u), dot_f32(u, u))
+                norm_new = torch.sqrt(nn)
+
+            conv.record(k, norm_new)
+            gamma, gamma_prev, delta, alpha_prev = gamma_new, gamma, delta_new, alpha
+        if loop is not None:
+            loop.attrs.update(steps=conv.steps, polls=conv.polls)
     return conv.iterations, x, conv.norm, conv.converged, conv.history, conv.steps
 
 

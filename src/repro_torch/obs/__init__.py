@@ -12,9 +12,16 @@ Off by default and free while off:
     print(obs.format_metrics())       # plan cache, buckets, queue waits, ...
     obs.dump_spans("spans.json"); obs.dump_jsonl("metrics.jsonl")
 
-* ``trace``   — host-side span trees; each span also opens a
-  ``torch.profiler.record_function`` range under the same name, and
-  ``trace_scope`` is that range alone.
+    obs.enable(reports=False)         # spans and counters; nothing syncs
+
+* ``trace``   — host-side span trees on ``time.monotonic_ns()``: name,
+  id, parent, thread, start, end and counts, recorded without waiting for
+  the device (the benchmark maps them onto its device trace). Spans sit
+  at the layer boundaries: ``plan.solve``/``plan.solve_batched`` >
+  ``pipecg.init``, ``pipecg.loop`` > ``pipecg.poll``; ``serve.admit``,
+  ``serve.queue`` (per request), ``serve.wait``, ``serve.bucket`` >
+  ``serve.assemble``, the plan's spans, ``serve.sync``,
+  ``serve.readback``, ``serve.deliver``.
 * ``metrics`` — process-local counters/gauges/histograms with JSON-lines
   and human-readable sinks; strict no-ops while disabled.
 * ``report``  — :class:`SolveReport` built from a ``SolveResult`` and the
@@ -55,17 +62,18 @@ from .trace import (  # noqa: F401
     dump_spans,
     enable,
     enabled,
+    record_span,
+    reports,
     span,
     span_tree,
     spans_to_dicts,
-    trace_scope,
 )
 
 __all__ = [
     # switch
-    "enable", "disable", "enabled",
+    "enable", "disable", "enabled", "reports",
     # spans
-    "span", "trace_scope", "Span", "span_tree", "clear_spans",
+    "span", "record_span", "Span", "span_tree", "clear_spans",
     "spans_to_dicts", "dump_spans",
     # metrics
     "counter", "gauge", "histogram", "metric_names", "snapshot",

@@ -1,28 +1,30 @@
-"""Host-side spans and profiler annotations for the solver stack.
+"""Host-side spans for the solver stack, on the host's monotonic clock.
 
-Two instruments, both strict no-ops until ``enable()``:
+Off by default, and off a span site costs one predicate check:
+:func:`span` returns a shared no-op context. On (``enable()``), each span
+records its name, an id, its parent's id, the thread that opened it, its
+start and end from ``time.monotonic_ns()`` (the clock of
+``SolveRequest.enqueued_at``) and its attributes, the counts of the
+region. Recording never waits for the device: a span around CUDA
+launches times their enqueue, so on the card a span's end is when the
+host moved on, which is what a device trace on the same clock needs to
+charge the device's idle gaps to what the host was doing.
 
-* :func:`span` — a host-side timed span. Spans nest into a tree (plan
-  build; serving bucket > solve) and each span also opens a
-  ``torch.profiler.record_function`` range, so the same region shows up
-  under the same name in a ``torch.profiler`` trace.
-* :func:`trace_scope` — ``torch.profiler.record_function(name)`` alone,
-  for code whose wall time is not wanted as a span (a phase of the
-  solver loop): it labels the launches inside it in a profile and adds
-  no device work.
+:func:`record_span` records a span with explicit start and end (a
+request's queue wait, which begins on the thread that admitted it and
+ends on the worker's); it belongs to no thread.
 
-Host spans measure wall time with ``time.perf_counter`` around host
-work; CUDA launches are asynchronous, so a span around a solve measures
-end to end only if the code inside it synchronises (the serving worker
-does, once per bucket).
+``enable(reports=False)`` records spans and counters only; ``enable()``
+also lets the plan synchronise and time each solve and build its
+``SolveReport`` (:func:`reports`).
 
 State is process-local and thread-safe: each thread keeps its own open
-span stack; finished root spans accumulate in one shared list read by
-``span_tree()`` / ``dump_spans()``.
+span stack; finished root spans accumulate in one shared list, read by
+``span_tree()`` / ``dump_spans()`` until ``clear_spans()``.
 """
 from __future__ import annotations
 
-import contextlib
+import itertools
 import json
 import threading
 import time
@@ -33,8 +35,9 @@ __all__ = [
     "enable",
     "disable",
     "enabled",
+    "reports",
     "span",
-    "trace_scope",
+    "record_span",
     "Span",
     "span_tree",
     "clear_spans",
@@ -43,14 +46,19 @@ __all__ = [
 ]
 
 _ENABLED = False
+_REPORTS = True
 _LOCK = threading.Lock()
 _ROOTS: List["Span"] = []
 _TLS = threading.local()
+_IDS = itertools.count(1)
 
 
-def enable() -> None:
-    """Turn observability on process-wide (spans record, metrics count)."""
-    global _ENABLED
+def enable(reports: bool = True) -> None:
+    """Turn observability on process-wide: spans record, metrics count.
+    With ``reports`` a plan also synchronises and times each solve and
+    keeps its ``SolveReport``; without, nothing waits for the device."""
+    global _ENABLED, _REPORTS
+    _REPORTS = bool(reports)
     _ENABLED = True
 
 
@@ -64,23 +72,64 @@ def enabled() -> bool:
     return _ENABLED
 
 
-@dataclass
+def reports() -> bool:
+    """Whether solves are synchronised, timed and reported."""
+    return _ENABLED and _REPORTS
+
+
+def _stack() -> List["Span"]:
+    st = getattr(_TLS, "stack", None)
+    if st is None:
+        st = _TLS.stack = []
+    return st
+
+
+@dataclass(eq=False)
 class Span:
-    """One timed region; children are spans opened while it was open."""
+    """One timed region; children are spans opened in it on its thread.
+    Used as a context manager (:func:`span`), it takes its parent and
+    thread from the thread that enters it."""
 
     name: str
     attrs: Dict[str, Any] = field(default_factory=dict)
-    t_start: float = 0.0
-    t_end: float = 0.0
+    span_id: int = field(default_factory=lambda: next(_IDS))
+    parent_id: Optional[int] = None
+    thread: Optional[int] = None
+    start_ns: int = 0
+    end_ns: int = 0
     children: List["Span"] = field(default_factory=list)
 
     @property
     def duration_s(self) -> float:
-        return max(self.t_end - self.t_start, 0.0)
+        return max(self.end_ns - self.start_ns, 0) * 1e-9
+
+    def __enter__(self) -> "Span":
+        st = _stack()
+        self.parent_id = st[-1].span_id if st else None
+        self.thread = threading.get_ident()
+        st.append(self)
+        self.start_ns = time.monotonic_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = time.monotonic_ns()
+        st = _stack()
+        st.pop()
+        if st:
+            st[-1].children.append(self)
+        else:
+            with _LOCK:
+                _ROOTS.append(self)
+        return False
 
     def to_dict(self) -> dict:
         return {
             "name": self.name,
+            "id": self.span_id,
+            "parent": self.parent_id,
+            "thread": self.thread,
+            "start_ns": self.start_ns,
+            "end_ns": self.end_ns,
             "duration_s": self.duration_s,
             "attrs": dict(self.attrs),
             "children": [c.to_dict() for c in self.children],
@@ -97,56 +146,45 @@ class Span:
         return None
 
 
-def _stack() -> List[Span]:
-    st = getattr(_TLS, "stack", None)
-    if st is None:
-        st = _TLS.stack = []
-    return st
+class _Off:
+    """The context of every span site while observability is off."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
 
 
-def _record_function(name: str):
-    from torch.profiler import record_function
-
-    return record_function(name)
+_OFF = _Off()
 
 
-@contextlib.contextmanager
 def span(name: str, **attrs):
-    """Open a named host span (and a profiler range) around a block.
+    """A named host span around a block (``with span(...) as sp``).
 
-    Yields the :class:`Span` (or None when disabled) so callers can attach
-    attributes discovered mid-block: ``sp and sp.attrs.update(...)``.
+    ``sp`` is the :class:`Span`, or None when disabled, so callers can
+    attach attributes found mid-block: ``if sp is not None:
+    sp.attrs.update(...)``.
     """
     if not _ENABLED:
-        yield None
-        return
-    sp = Span(name=name, attrs=dict(attrs))
-    st = _stack()
-    st.append(sp)
-    sp.t_start = time.perf_counter()
-    try:
-        with _record_function(name):
-            yield sp
-    finally:
-        sp.t_end = time.perf_counter()
-        st.pop()
-        if st:
-            st[-1].children.append(sp)
-        else:
-            with _LOCK:
-                _ROOTS.append(sp)
+        return _OFF
+    return Span(name, attrs)
 
 
-def trace_scope(name: str):
-    """``torch.profiler.record_function(name)`` when enabled, a
-    nullcontext otherwise."""
+def record_span(name: str, start_ns: int, end_ns: int, **attrs) -> None:
+    """Record a finished root span with explicit ``time.monotonic_ns()``
+    bounds, on no thread (a no-op when disabled)."""
     if not _ENABLED:
-        return contextlib.nullcontext()
-    return _record_function(name)
+        return
+    sp = Span(name, attrs, start_ns=int(start_ns), end_ns=int(end_ns))
+    with _LOCK:
+        _ROOTS.append(sp)
 
 
 def span_tree() -> Tuple[Span, ...]:
-    """All finished root spans, oldest first."""
+    """All finished root spans, in the order they finished."""
     with _LOCK:
         return tuple(_ROOTS)
 

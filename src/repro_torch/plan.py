@@ -47,8 +47,11 @@ shard's loop, so each reduction carries all k partials.
 
 With observability on (``repro_torch.obs.enable()``) a solve is
 synchronised and timed, the plan's metrics are recorded and a
-:class:`~repro_torch.obs.SolveReport` lands on ``plan.last_report``; off,
-the solve runs as it would without the bookkeeping.
+:class:`~repro_torch.obs.SolveReport` lands on ``plan.last_report``; with
+``obs.enable(reports=False)`` a solve only records its spans
+(``plan.solve`` or ``plan.solve_batched``, and the loop's) and counters,
+and waits for nothing; off, the solve runs as it would without the
+bookkeeping.
 """
 from __future__ import annotations
 
@@ -70,7 +73,7 @@ from .core.pipecg import _resolve_config, pin_pipecg_core
 from .core.preconditioners import IdentityPC, JacobiPC
 from .core.types import SolveResult
 from .obs import metrics as _metrics
-from .obs.trace import enabled as _obs_enabled, span as _span
+from .obs.trace import reports as _obs_reports, span as _span
 from .sparse.formats import BellMatrix, CSRMatrix, DIAMatrix
 from .sparse.partition import balanced_rows, shard_dia, shard_vector, unshard_vector
 from .sparse.spmv import resolve_engine, spmv
@@ -433,21 +436,19 @@ class SolverPlan:
                 self.rtol if rtol is None else float(rtol))
 
     def _timed(self, k: Optional[int], b, x0, atol, rtol, name: str):
-        """Run one entry point; with obs on, synchronised and timed under a
-        span. Returns (result, seconds or None, cold)."""
-        if not _obs_enabled():
-            return self._runner(k)(b, x0, *self._tols(atol, rtol)), None, False
-        traces_before = self.trace_count
-        with _span(name, method=self.method, n=self.n, k=k or 1) as sp:
+        """Run one entry point under a span; with reports on
+        (``obs.enable()``), synchronised and timed. Returns (result,
+        seconds or None, cold)."""
+        with _span(name, k=k or 1):
+            if not _obs_reports():
+                return self._runner(k)(b, x0, *self._tols(atol, rtol)), None, False
+            traces_before = self.trace_count
             t0 = time.perf_counter()
             res = self._runner(k)(b, x0, *self._tols(atol, rtol))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             elapsed = time.perf_counter() - t0
-        cold = self.trace_count > traces_before
-        if sp is not None:
-            sp.attrs.update(time_s=elapsed, cold_start=cold)
-        return res, elapsed, cold
+        return res, elapsed, self.trace_count > traces_before
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None,
               atol: float | None = None, rtol: float | None = None) -> SolveResult:
@@ -461,6 +462,7 @@ class SolverPlan:
             raise ValueError(f"solve takes one rhs of shape ({self.n},), got "
                              f"{tuple(b.shape)}; use solve_batched for (k, n)")
         res, elapsed, cold = self._timed(None, b, x0, atol, rtol, "plan.solve")
+        _metrics.counter("plan.solves").inc()
         if elapsed is not None:
             self._record_solve(res, elapsed, b, cold=cold)
         return res
@@ -484,12 +486,11 @@ class SolverPlan:
                              f"{tuple(B.shape)}")
         k = int(B.shape[0])
         res, elapsed, cold = self._timed(k, B, x0, atol, rtol, "plan.solve_batched")
+        _metrics.counter("plan.batched_solves").inc()
+        _metrics.counter("plan.batched_rhs").inc(k)
         if elapsed is not None:
             from .obs.report import iterations_from_history
 
-            _metrics.counter("plan.batched_solves").inc()
-            _metrics.counter("plan.batched_rhs").inc(k)
-            _metrics.histogram("plan.batch_size").record(k)
             self._record_solve(res, elapsed, B[0] if k else None, cold=cold, batched=True)
             for it in np.asarray(iterations_from_history(res.history)).ravel():
                 _metrics.histogram("plan.solve_iterations").record(int(it))
@@ -515,7 +516,6 @@ class SolverPlan:
             _metrics.histogram("plan.solve_time_s").record(elapsed)
         if batched:
             return
-        _metrics.counter("plan.solves").inc()
         _metrics.histogram("plan.solve_iterations").record(report.iterations)
         if not report.converged:
             _metrics.counter("plan.solves_unconverged").inc()

@@ -24,6 +24,7 @@ histograms/counters (no-ops while observability is disabled).
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import deque
@@ -54,6 +55,9 @@ class DeadlineExceeded(RuntimeError):
     """The request's deadline expired before its bucket was served."""
 
 
+_REQUEST_IDS = itertools.count()
+
+
 def reject(reason: str, n: int = 1) -> None:
     """Count a rejection under ``serve.rejects.<reason>``."""
     _metrics.counter(f"serve.rejects.{reason}").inc(n)
@@ -66,7 +70,8 @@ class SolveRequest:
     ``deadline`` is an absolute ``time.monotonic()`` instant (None = no
     deadline). ``future`` resolves to the per-request result the server
     builds from its bucket's solve; callers block on it (or wrap it for
-    asyncio).
+    asyncio). ``id`` comes from a process-wide counter: the serving
+    tier's spans and ``ServeResult.request_id`` carry it.
     """
 
     b: object
@@ -75,6 +80,7 @@ class SolveRequest:
     deadline: Optional[float] = None
     future: Future = field(default_factory=Future)
     enqueued_at: float = field(default_factory=time.monotonic)
+    id: int = field(default_factory=lambda: next(_REQUEST_IDS))
 
 
 class RequestQueue:

@@ -26,9 +26,18 @@ result's memory is kept from reuse until the default stream's work on it
 has run.
 ``SolverServer.from_manifest`` warm-starts a fresh replica from a saved
 manifest so its first request builds no runner.
+
+With ``repro_torch.obs`` on, the tier records a ``serve.admit`` span per
+``submit``, a ``serve.queue`` span per request (admission to its
+bucket's close), the worker's ``serve.wait`` inside the queue and one
+``serve.bucket`` span per bucket (its id, k, size, steps, its slowest
+lane's iterations and the request ids) around ``serve.assemble`` (stack and pad), the plan's spans,
+``serve.sync``, ``serve.readback`` and ``serve.deliver`` (``set_result``,
+which runs the callers' callbacks); none of them waits for the device.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from concurrent.futures import Future
@@ -41,17 +50,25 @@ import torch
 
 from ..obs import metrics as _metrics
 from ..obs.report import iterations_from_history
-from ..obs.trace import span as _span
+from ..obs.trace import enabled as _obs_enabled, record_span as _record_span, span as _span
 from .engine import bucket_waste, record_bucket
 from .queue import RequestQueue, ServerClosed, SolveRequest, reject
 from .router import PlanEntry, PlanPool
 
 __all__ = ["ServeResult", "SolverServer"]
 
+_BUCKET_IDS = itertools.count()
+
 
 @dataclass(frozen=True)
 class ServeResult:
-    """Per-request outcome, sliced out of its bucket's batched solve."""
+    """Per-request outcome, sliced out of its bucket's batched solve.
+
+    ``iterations`` is this request's own count (its history row's NaN
+    tail); ``steps`` is the bucket's ``SolveResult.steps``, the loop
+    steps its lanes shared, no-op steps after the slowest lane's
+    convergence included. ``request_id`` is ``SolveRequest.id``.
+    """
 
     x: object
     iterations: int
@@ -61,6 +78,8 @@ class ServeResult:
     solve_s: float           # bucket wall-clock (shared by its bucket)
     bucket_size: int         # live requests in the bucket (1 = the single runner)
     bucket_occupancy: float  # live / compiled lanes
+    request_id: int
+    steps: int
 
 
 def _worker_stream(plan) -> Optional[torch.cuda.Stream]:
@@ -97,10 +116,16 @@ class _PlanWorker:
                 time.sleep(0.01)
         self.stream = _worker_stream(self.entry.plan)
         while True:
-            batch = self.queue.next_batch(self.server.max_batch,
-                                          self.server.max_wait_ms / 1e3)
+            with _span("serve.wait"):
+                batch = self.queue.next_batch(self.server.max_batch,
+                                              self.server.max_wait_ms / 1e3)
             if batch is None:
                 return  # closed + drained
+            if _obs_enabled():
+                closed = time.monotonic_ns()  # same clock as enqueued_at, in ns
+                for r in batch:
+                    _record_span("serve.queue", round(r.enqueued_at * 1e9), closed,
+                                 request=r.id)
             if not batch:
                 continue  # every popped request had an expired deadline
             self.idle.clear()
@@ -118,55 +143,66 @@ class _PlanWorker:
         rtol = min(r.rtol for r in batch)
         t0 = time.monotonic()  # same clock as SolveRequest.enqueued_at
         stream = self.stream
-        try:
-            if stream is not None:  # the rhs were made on the default stream
-                stream.wait_stream(torch.cuda.default_stream(stream.device))
-            with _span("serve.bucket", k=k):
+        with _span("serve.bucket", k=k) as bucket:
+            try:
+                if stream is not None:  # the rhs were made on the default stream
+                    stream.wait_stream(torch.cuda.default_stream(stream.device))
                 if k == 1:
                     res = plan.solve(batch[0].b, atol=atol, rtol=rtol)
                     size = 1
                 else:
-                    B = torch.stack([r.b for r in batch])
-                    pad = self.server.max_batch - k
-                    if pad > 0:  # pad into the one bucket runner
-                        B = torch.cat([B, B.new_zeros(pad, B.shape[1])])
+                    with _span("serve.assemble"):
+                        B = torch.stack([r.b for r in batch])
+                        pad = self.server.max_batch - k
+                        if pad > 0:  # pad into the one bucket runner
+                            B = torch.cat([B, B.new_zeros(pad, B.shape[1])])
                     size = B.shape[0]
                     record_bucket(k, size)
                     res = plan.solve_batched(B, atol=atol, rtol=rtol)
                 if stream is not None:
-                    stream.synchronize()
+                    with _span("serve.sync"):
+                        stream.synchronize()
                     # callers use x on the default stream: keep its memory
                     # from this stream's reuse until that work has run
                     res.x.record_stream(torch.cuda.default_stream(stream.device))
-        except BaseException as e:
-            for r in batch:
-                r.future.set_exception(e)
-            _metrics.counter("serve.solve_errors").inc(k)
-            return
-        solve_s = time.monotonic() - t0
-        _metrics.histogram("serve.bucket_solve_s").record(solve_s)
+            except BaseException as e:
+                for r in batch:
+                    r.future.set_exception(e)
+                _metrics.counter("serve.solve_errors").inc(k)
+                return
+            solve_s = time.monotonic() - t0
+            steps = int(res.steps)
+            if bucket is not None:
+                bucket.attrs.update(bucket=next(_BUCKET_IDS), size=size, steps=steps,
+                                    requests=[r.id for r in batch])
 
-        if k == 1:
-            iters = np.asarray([iterations_from_history(res.history)])
-            xs = [res.x]
-            conv = [bool(res.converged)]
-            rnorm = [float(res.residual_norm)]
-        else:
-            iters = iterations_from_history(res.history)[:k]
-            _metrics.counter("serve.wasted_lane_iterations").inc(bucket_waste(iters, size))
-            xs = [res.x[i] for i in range(k)]
-            conv = res.converged[:k].tolist()
-            rnorm = res.residual_norm[:k].tolist()
-        for i, r in enumerate(batch):
-            it = int(iters[i])
-            _metrics.histogram("serve.rhs_iterations").record(it)
-            r.future.set_result(ServeResult(
-                x=xs[i], iterations=it, converged=bool(conv[i]),
-                residual_norm=float(rnorm[i]),
-                queue_wait_s=max(t0 - r.enqueued_at, 0.0),
-                solve_s=solve_s, bucket_size=k,
-                bucket_occupancy=k / size,
-            ))
+            with _span("serve.readback"):
+                if k == 1:
+                    iters = np.asarray([iterations_from_history(res.history)])
+                    xs = [res.x]
+                    conv = [bool(res.converged)]
+                    rnorm = [float(res.residual_norm)]
+                else:
+                    iters = iterations_from_history(res.history)[:k]
+                    _metrics.counter("serve.wasted_lane_iterations").inc(
+                        bucket_waste(iters, size))
+                    xs = [res.x[i] for i in range(k)]
+                    conv = res.converged[:k].tolist()
+                    rnorm = res.residual_norm[:k].tolist()
+            if bucket is not None:
+                bucket.attrs["iterations"] = int(max(iters))
+            with _span("serve.deliver"):
+                for i, r in enumerate(batch):
+                    it = int(iters[i])
+                    _metrics.histogram("serve.rhs_iterations").record(it)
+                    r.future.set_result(ServeResult(
+                        x=xs[i], iterations=it, converged=bool(conv[i]),
+                        residual_norm=float(rnorm[i]),
+                        queue_wait_s=max(t0 - r.enqueued_at, 0.0),
+                        solve_s=solve_s, bucket_size=k,
+                        bucket_occupancy=k / size,
+                        request_id=r.id, steps=steps,
+                    ))
 
 
 class SolverServer:
@@ -220,15 +256,18 @@ class SolverServer:
             cfg["atol"] = float(atol)
         if rtol is not None:
             cfg["rtol"] = float(rtol)
-        entry, _ = self.pool.get_or_create(A, cfg)
-        worker = self._worker_for(entry)
-        req = SolveRequest(
-            b=b, atol=float(cfg["atol"]), rtol=float(cfg["rtol"]),
-            deadline=None if deadline_ms is None
-            else time.monotonic() + deadline_ms / 1e3,
-        )
-        _metrics.counter("serve.requests").inc()
-        worker.queue.put(req)
+        with _span("serve.admit") as sp:
+            entry, _ = self.pool.get_or_create(A, cfg)
+            worker = self._worker_for(entry)
+            req = SolveRequest(
+                b=b, atol=float(cfg["atol"]), rtol=float(cfg["rtol"]),
+                deadline=None if deadline_ms is None
+                else time.monotonic() + deadline_ms / 1e3,
+            )
+            if sp is not None:
+                sp.attrs["request"] = req.id
+            _metrics.counter("serve.requests").inc()
+            worker.queue.put(req)
         return req.future
 
     def submit_many(self, A, B: Sequence, **kwargs) -> List[Future]:
